@@ -30,24 +30,17 @@
 // change only the schedule). The fold forms, with fmaf, exactly the fused
 // multiply-adds that XLA forms for the JAX package's formulas, and the
 // plain version emulates them exactly; -fmad=false keeps the compiler from
-// fusing anything else, so the two round alike bit for bit.
+// fusing anything else, so the two round alike bit for bit. The gate, the
+// staging and the fold live in bw_fold.cuh, shared with K2 and K3.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bw_fold.cuh"
+
 namespace {
 
-constexpr float kMaxFloat = 100000.0f;       // reference miss sentinel
-constexpr float kEpsParallel = 1e-5f;        // modelLoader.h:64
-constexpr float kMaskedInit = -3.0e38f;      // masked lanes never update
-constexpr int kRows = 12;                    // n, v0, m1, m2 (xyz each)
-
-__device__ __forceinline__ float guarded_inv(float d) {
-  // a zero direction component would give 0*inf = NaN in the slab test,
-  // whose comparisons are false: the gate would skip a plausible cluster
-  float g = fabsf(d) < 1e-30f ? (d < 0.0f ? -1e-30f : 1e-30f) : d;
-  return 1.0f / g;
-}
+using bwfold::kRows;
 
 __global__ void dense_resident_kernel(
     const int32_t* __restrict__ ids,       // (Tl, M) shortlist cluster ids
@@ -67,74 +60,20 @@ __global__ void dense_resident_kernel(
   const int P = blockDim.x;
   const int lane = threadIdx.x;
   const int64_t tile = blockIdx.x;
-  const float* r = rays + tile * 8 * P;
-  const float ox = r[0 * P + lane], oy = r[1 * P + lane];
-  const float oz = r[2 * P + lane];
-  const float dx = r[3 * P + lane], dy = r[4 * P + lane];
-  const float dz = r[5 * P + lane];
-  const bool live = r[6 * P + lane] > 0.5f;
-  const float cap = r[7 * P + lane];
-  float t = live ? (cap < kMaxFloat ? cap : kMaxFloat) : kMaskedInit;
+  float t;
   int32_t best = -1;
-  const float idx = guarded_inv(dx), idy = guarded_inv(dy);
-  const float idz = guarded_inv(dz);
+  const bwfold::Ray r = bwfold::load_ray(rays, tile, P, lane, &t);
 
   const int cnt = counts[tile];
   for (int s = 0; s < cnt; ++s) {
-    if (!__syncthreads_or(live && t >= entries[tile * M + s])) break;
+    if (!__syncthreads_or(r.live && t >= entries[tile * M + s])) break;
     const int sid = ids[tile * M + s];
-    const float* b = boxes + static_cast<int64_t>(sid) * 6;
-    const float tx0 = (b[0] - ox) * idx, tx1 = (b[3] - ox) * idx;
-    const float ty0 = (b[1] - oy) * idy, ty1 = (b[4] - oy) * idy;
-    const float tz0 = (b[2] - oz) * idz, tz1 = (b[5] - oz) * idz;
-    const float tmin = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
-                             fminf(tz0, tz1));
-    const float tmax = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
-                             fmaxf(tz0, tz1));
-    const bool pass = live && tmin <= tmax && tmax >= 0.0f && tmin <= t;
+    const bool pass = bwfold::box_gate(
+        boxes + static_cast<int64_t>(sid) * 6, r, t);
     if (!__syncthreads_or(pass)) continue;
-
-    const float* src = packed + static_cast<int64_t>(sid) * kRows * C;
-    for (int i = lane; i < kRows * C; i += P) cl[i] = src[i];
-    const int32_t* src_id = tri + static_cast<int64_t>(sid) * C;
-    for (int i = lane; i < C; i += P) cl_id[i] = src_id[i];
+    bwfold::stage_cluster(cl, cl_id, packed, tri, sid, C, lane, P);
     __syncthreads();
-
-    if (pass) {
-      for (int c = 0; c < C; ++c) {
-        const float nx = cl[0 * C + c], ny = cl[1 * C + c];
-        const float nz = cl[2 * C + c];
-        const float sx = ox - cl[3 * C + c], sy = oy - cl[4 * C + c];
-        const float sz = oz - cl[5 * C + c];
-        // a.x*b.x + a.y*b.y + a.z*b.z as fma(a.z, b.z, fma(a.x, b.x,
-        // a.y*b.y)) and s + d*t as fma(d, t, s): the fused multiply-adds
-        // that XLA forms for the reference's formulas (ops/vecmath.py)
-        const float nd = __fmaf_rn(dz, nz, __fmaf_rn(dx, nx, dy * ny));
-        const bool parallel = fabsf(nd) < kEpsParallel;
-        const float inv = 1.0f / nd;
-        const float tt =
-            -__fmaf_rn(sz, nz, __fmaf_rn(sx, nx, sy * ny)) * inv;
-        const float wx = __fmaf_rn(dx, tt, sx);
-        const float wy = __fmaf_rn(dy, tt, sy);
-        const float wz = __fmaf_rn(dz, tt, sz);
-        const float bu = __fmaf_rn(cl[8 * C + c], wz,
-                                   __fmaf_rn(cl[6 * C + c], wx,
-                                             cl[7 * C + c] * wy));
-        const float bv = __fmaf_rn(cl[11 * C + c], wz,
-                                   __fmaf_rn(cl[9 * C + c], wx,
-                                             cl[10 * C + c] * wy));
-        const float bw = 1.0f - bu - bv;
-        // all-zero padding and sentinel triangles have n = 0: parallel
-        const bool reject = parallel || bu < 0.0f || bv < 0.0f
-                            || bw < 0.0f || tt <= 0.0f;
-        const float ts = reject ? kMaxFloat : tt;
-        const int32_t id = cl_id[c];
-        if (ts < t || (ts == t && id < best)) {
-          t = ts;
-          best = id;
-        }
-      }
-    }
+    if (pass) bwfold::bw_fold(cl, cl_id, C, C, r, t, best);
     __syncthreads();  // the next slot's load overwrites shared memory
   }
   t_out[tile * P + lane] = t;

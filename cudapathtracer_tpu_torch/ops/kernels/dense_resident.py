@@ -18,6 +18,9 @@ what its design does about that. Beside it:
   CUDA tensors (and raises if the build or the launch fails) and takes the
   plain version only for tensors on the CPU. ``launches`` counts kernel
   launches; ``dense_intersect_resident_plain.calls`` counts plain calls.
+* What K2 (``dense.py``) and K3 (``dense_super.py``) share with K1: the
+  uncounted plain fold ``plain_fold``, the input checks, the build
+  (``load_fold_kernel``) and the launch (``launch_fold``).
 
 Inputs, for Tl tiles of P rays and a shortlist of M slots:
 ids (Tl, M) i32 cluster ids ascending by entry, with K past each count;
@@ -41,6 +44,7 @@ from ...utils.build import PACKAGE_DIR, build_and_load
 from ...utils.constants import EPS_PARALLEL, MAX_FLOAT
 
 SOURCE = os.path.join(PACKAGE_DIR, "csrc", "dense_resident.cu")
+HEADER = os.path.join(PACKAGE_DIR, "csrc", "bw_fold.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 ROWS = 12
@@ -49,7 +53,8 @@ _FAR_BOX = 1.0e7
 
 # The JAX package's VMEM budget for its resident kernel
 # (dense_resident.py:58, 67-69). Past it the JAX package switches to its
-# DMA kernel (K2), which the port has not ported: the packet engine raises.
+# DMA kernel, K2; the port keeps the same rule (ops/packets.route), so a
+# configuration takes the same kernel in both packages.
 RESIDENT_VMEM_BUDGET = 72 * 1024 * 1024
 
 
@@ -94,15 +99,14 @@ def _check_inputs(ids, counts, entries, rays, packed, tri, boxes):
     return Tl, M, P, C
 
 
-def dense_intersect_resident_plain(ids, counts, entries, rays, packed, tri,
-                                   boxes, chunk_elems: int = 1 << 24):
-    """Plain PyTorch version: fold every slot s < count of every tile,
+def plain_fold(ids, counts, entries, rays, packed, tri, boxes,
+               chunk_elems: int = 1 << 24):
+    """The plain fold, uncounted: fold every slot s < count of every tile,
     ungated, in blocks of tiles of at most ``chunk_elems`` (ray, triangle)
     pairs. The fold keeps the lexicographic minimum of (t, id) from the
     init (cap, -1), which is what the kernel's sequential
     ``ts < t or (ts == t and id < best)`` computes. ``entries`` and
     ``boxes`` only steer the kernel's skipping, so they are unused here."""
-    dense_intersect_resident_plain.calls += 1
     Tl, M, P, C = _check_inputs(ids, counts, entries, rays, packed, tri,
                                 boxes)
     o = [rays[:, i, :, None] for i in range(6)]       # (Tl, P, 1)
@@ -145,19 +149,66 @@ def dense_intersect_resident_plain(ids, counts, entries, rays, packed, tri,
     return t_best, tri_best
 
 
+def dense_intersect_resident_plain(ids, counts, entries, rays, packed, tri,
+                                   boxes):
+    """K1's plain PyTorch version (``plain_fold``), counted."""
+    dense_intersect_resident_plain.calls += 1
+    return plain_fold(ids, counts, entries, rays, packed, tri, boxes)
+
+
 dense_intersect_resident_plain.calls = 0
+
+
+def load_fold_kernel(lib_name: str, source: str, symbol: str, n_ints: int):
+    """Build ``source`` (with bw_fold.cuh) into ``build/lib_name`` and bind
+    ``symbol(9 pointers, n_ints ints, stream) -> cudaError_t``."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    lib = build_and_load(lib_name, [source], [nvcc] + NVCC_FLAGS,
+                         headers=[HEADER])
+    fn = getattr(lib, symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * n_ints
+                   + [ctypes.c_void_p])
+    return fn
+
+
+def launch_fold(load, name, ids, counts, entries, rays, packed, tri, boxes,
+                extra=()):
+    """Check the inputs, launch ``load()``'s kernel with (pointers, Tl, M,
+    P, C, *extra) on the current stream and return (t, tri); raise if the
+    launch fails."""
+    Tl, M, P, C = _check_inputs(ids, counts, entries, rays, packed, tri,
+                                boxes)
+    if P % 32 != 0 or not 0 < P <= 1024:
+        raise ValueError(f"tile size {P} must be a multiple of 32 <= 1024")
+    t = torch.empty((Tl, P), dtype=torch.float32, device=rays.device)
+    tri_out = torch.empty((Tl, P), dtype=torch.int32, device=rays.device)
+    if Tl == 0:
+        return t, tri_out
+    fn = load()
+    with torch.cuda.device(rays.device):
+        stream = torch.cuda.current_stream(rays.device).cuda_stream
+        err = fn(ids.data_ptr(), counts.data_ptr(), entries.data_ptr(),
+                 rays.data_ptr(), packed.data_ptr(), tri.data_ptr(),
+                 boxes.data_ptr(), t.data_ptr(), tri_out.data_ptr(),
+                 Tl, M, P, C, *extra, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return t, tri_out
+
+
+def is_cpu(rays):
+    """True for CPU tensors (take the plain version), False for CUDA ones
+    (launch the kernel); any other device raises."""
+    if rays.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {rays.device}")
+    return rays.device.type == "cpu"
 
 
 @functools.cache
 def _load_kernel():
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    lib = build_and_load("libdense_resident.so", [SOURCE],
-                         [nvcc] + NVCC_FLAGS)
-    fn = lib.dense_resident_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    return fn
+    return load_fold_kernel("libdense_resident.so", SOURCE,
+                            "dense_resident_launch", 4)
 
 
 def build():
@@ -168,31 +219,13 @@ def build():
 
 def dense_intersect_resident(ids, counts, entries, rays, packed, tri, boxes):
     """K1 on CUDA tensors; the plain version for tensors on the CPU."""
-    if rays.device.type == "cpu":
+    if is_cpu(rays):
         return dense_intersect_resident_plain(ids, counts, entries, rays,
                                               packed, tri, boxes)
-    if rays.device.type != "cuda":
-        raise ValueError(f"no kernel for device {rays.device}")
-    Tl, M, P, C = _check_inputs(ids, counts, entries, rays, packed, tri,
-                                boxes)
-    if P % 32 != 0 or not 0 < P <= 1024:
-        raise ValueError(f"tile size {P} must be a multiple of 32 <= 1024")
-    t = torch.empty((Tl, P), dtype=torch.float32, device=rays.device)
-    tri_out = torch.empty((Tl, P), dtype=torch.int32, device=rays.device)
-    if Tl == 0:
-        return t, tri_out
-    fn = _load_kernel()
-    with torch.cuda.device(rays.device):
-        stream = torch.cuda.current_stream(rays.device).cuda_stream
-        err = fn(ids.data_ptr(), counts.data_ptr(), entries.data_ptr(),
-                 rays.data_ptr(), packed.data_ptr(), tri.data_ptr(),
-                 boxes.data_ptr(), t.data_ptr(), tri_out.data_ptr(),
-                 Tl, M, P, C, stream)
-    if err != 0:
-        raise RuntimeError(f"dense_resident kernel launch failed: CUDA "
-                           f"error {err}")
+    out = launch_fold(_load_kernel, "dense_resident", ids, counts, entries,
+                      rays, packed, tri, boxes)
     dense_intersect_resident.launches += 1
-    return t, tri_out
+    return out
 
 
 dense_intersect_resident.launches = 0

@@ -6,11 +6,14 @@ one-round path:
 1. optionally sort the rays by direction octant and origin Morton code so
    each tile of P consecutive rays is coherent (``ray_sort_keys``);
 2. bound each tile's origins and directions and cull the scene's clusters
-   against that frustum (``tile_cull``);
+   (or, on the super route, its superclusters of F preorder-consecutive
+   clusters) against that frustum (``tile_cull``);
 3. keep the M nearest candidates per tile, ascending by entry distance
    (``torch.topk``), and the smallest entry among dropped candidates, U;
-4. fold each tile's shortlist densely (ops/kernels/dense_resident.py: the
-   CUDA kernel K1 on CUDA tensors, its plain version on CPU tensors);
+4. fold each tile's shortlist densely with the kernel that ``route``
+   picks: K1 (ops/kernels/dense_resident.py), K2 (dense.py) or K3
+   (dense_super.py), each a CUDA kernel on CUDA tensors and its plain
+   version on CPU tensors;
 5. ``_finish``: rays whose best hit is not below U (``>=``: an equal-t hit
    with a lower id may sit in a dropped cluster) are traced again through
    the fine BVH.
@@ -26,17 +29,48 @@ from typing import NamedTuple
 import torch
 
 from ..utils.constants import MAX_FLOAT
+from .kernels.dense import dense_intersect
 from .kernels.dense_resident import (
     dense_intersect_resident,
     pack_clusters,
     resident_fits,
 )
+from .kernels.dense_super import dense_intersect_super
 from .traversal import Hit, TraceData, trace, tri_blocks
 from .vecmath import Vec3
 
 # the JAX package's auto cull stays flat up to this many clusters
 # (packets.py:550-556) and picks a two-level cull past it
 FLAT_CULL_MAX_CLUSTERS = 2048
+
+
+def route(K: int, C: int, two_level: bool | str | None = None,
+          F: int = 8) -> str:
+    """The fold kernel for K clusters of C triangles: "resident" (K1),
+    "stream" (K2) or "super" (K3, super shortlists of F clusters). The JAX
+    package's choice, line for line (packets.py:526-557, :754-780):
+    ``two_level`` None is the auto cull, False the flat one, "super" asks
+    for super shortlists where the resident layout allows them. Raises
+    NotImplementedError where the JAX package would take its capped
+    two-level cull, which is not ported."""
+    can_resident = C % 128 == 0 and resident_fits(K, C)
+    can_super = can_resident and K > 2 * F
+    if two_level == "super":
+        if can_super:
+            return "super"
+        two_level = None          # the JAX package falls back to auto
+    if two_level is None:
+        if K <= FLAT_CULL_MAX_CLUSTERS:
+            two_level = False
+        elif can_super:
+            return "super"
+        else:
+            two_level = True
+    if two_level and K > F:
+        raise NotImplementedError(
+            f"two_level_cull: K={K} clusters of C={C} take the JAX package's "
+            "capped two-level cull (two_level=True), which is not ported")
+    return "resident" if can_resident else "stream"
 
 
 class PacketData(NamedTuple):
@@ -161,8 +195,8 @@ def sort_rays(o: Vec3, d: Vec3, mask, pd: PacketData):
 
 
 class Shortlists(NamedTuple):
-    """Per-tile kernel inputs (ops/kernels/dense_resident.py) and the
-    dropped-candidate bound U (Tl,)."""
+    """Per-tile kernel inputs (ops/kernels/dense_resident.py; in super
+    units on the super route) and the dropped-candidate bound U (Tl,)."""
 
     ids: torch.Tensor
     counts: torch.Tensor
@@ -171,10 +205,31 @@ class Shortlists(NamedTuple):
     U: torch.Tensor
 
 
+def _super_boxes(pd: PacketData, F: int):
+    """Boxes of the S = ceil(K / F) superclusters: min / max over F
+    preorder-consecutive cluster boxes, the last super padded with
+    inverted (+inf, -inf) boxes."""
+    K = pd.num_clusters
+    S = -(-K // F)
+
+    def merge(c, fill, red):
+        c = torch.cat([c, c.new_full((S * F - K,), fill)])
+        return red(c.reshape(S, F), dim=1)
+
+    return (Vec3(*(merge(c, torch.inf, torch.amin) for c in pd.cl_lo)),
+            Vec3(*(merge(c, -torch.inf, torch.amax) for c in pd.cl_hi)))
+
+
 def build_shortlists(o: Vec3, d: Vec3, mask, pd: PacketData,
-                     tile_size: int, max_clusters: int) -> Shortlists:
+                     tile_size: int, max_clusters: int,
+                     super_factor: int | None = None,
+                     super_list: int = 255) -> Shortlists:
     """Tile the R rays in order (P per tile, padded), cull the clusters
-    against each tile's frustum and keep the M nearest, ascending."""
+    against each tile's frustum and keep the M nearest, ascending. With
+    ``super_factor`` F, cull the superclusters of F clusters instead and
+    keep M = min(S, super_list, max_clusters // F) of them, the sentinel S
+    past each count (the JAX package's super shortlist,
+    packets.py:558-596)."""
     R = o.x.shape[0]
     dev = o.x.device
     K = pd.num_clusters
@@ -207,13 +262,23 @@ def build_shortlists(o: Vec3, d: Vec3, mask, pd: PacketData,
     dhi = Vec3(maxs[:, 3], maxs[:, 4], maxs[:, 5])
     any_lane = torch.any(m, dim=1, keepdim=True)
 
-    # ---- flat cull, shortlist and dropped-candidate bound U ---------------
+    # ---- cull, shortlist and dropped-candidate bound U --------------------
+    if super_factor is None:
+        N, lo, hi = K, pd.cl_lo, pd.cl_hi
+        M = min(int(max_clusters), K)
+    else:
+        F = int(super_factor)
+        lo, hi = _super_boxes(pd, F)
+        N = lo.x.shape[0]
+        # a dropped super's entry lower-bounds its members' entries
+        M = min(N, max(1, int(super_list)),
+                max(1, int(max_clusters) // F) if max_clusters < 4095
+                else N)
     hit, entry = tile_cull(olo, ohi, dlo, dhi,
-                           Vec3(*(c[None, :] for c in pd.cl_lo)),
-                           Vec3(*(c[None, :] for c in pd.cl_hi)))
+                           Vec3(*(c[None, :] for c in lo)),
+                           Vec3(*(c[None, :] for c in hi)))
     entry = torch.where(hit & any_lane, entry, torch.inf)
-    M = min(int(max_clusters), K)
-    if K > M:
+    if N > M:
         negv, idxs = torch.topk(-entry, M + 1, dim=1)
         U = -negv[:, M]
         negv = negv[:, :M]
@@ -223,7 +288,7 @@ def build_shortlists(o: Vec3, d: Vec3, mask, pd: PacketData,
         U = torch.full((Tl,), torch.inf, device=dev)
     entries = (-negv).contiguous()
     slot_ok = entries < torch.inf
-    ids = torch.where(slot_ok, idxs, K).to(torch.int32).contiguous()
+    ids = torch.where(slot_ok, idxs, N).to(torch.int32).contiguous()
     counts = slot_ok.sum(dim=1).to(torch.int32)
 
     # ---- per-ray search cap: scene-box exit distance (+ margin) -----------
@@ -247,28 +312,23 @@ def build_shortlists(o: Vec3, d: Vec3, mask, pd: PacketData,
 def trace_packets(o: Vec3, d: Vec3, pd: PacketData,
                   fine_td: TraceData | None = None, mask=None,
                   tile_size: int = 128, max_clusters: int = 32,
-                  sort: bool = False, resident_pack=None) -> Hit:
+                  sort: bool = False, two_level: bool | str | None = None,
+                  super_factor: int = 8, super_list: int = 255,
+                  resident_pack=None) -> Hit:
     """Closest hit for R rays through tile packets; the semantics of
     ``traversal.trace``: closest triangle with 0 < t, MAX_FLOAT/-1 on miss,
     exact-t ties to the lower id. ``fine_td`` enables the overflow
     fallback; without it, hits are exact only when no tile drops a
-    candidate. ``resident_pack``: ``pack_clusters(pd)``, precomputed once per
-    scene by the renderer. The fold is ``dense_intersect_resident``: K1 on
-    CUDA tensors, its plain version on CPU tensors."""
+    candidate. ``two_level``, ``super_factor`` and ``super_list`` choose
+    the cull and kernel as in the JAX package (``route``).
+    ``resident_pack``: ``pack_clusters(pd)``, precomputed once per scene by
+    the renderer; all three kernels read it."""
     R = o.x.shape[0]
     dev = o.x.device
     if mask is None:
         mask = torch.ones(R, dtype=torch.bool, device=dev)
-    K = pd.num_clusters
-    C = pd.cluster_size
-    if K > FLAT_CULL_MAX_CLUSTERS:
-        raise NotImplementedError(
-            f"two_level_cull=None with K={K} > {FLAT_CULL_MAX_CLUSTERS} "
-            "clusters: the auto cull would go two-level, which is not ported")
-    if not resident_fits(K, C):
-        raise NotImplementedError(
-            f"K={K} clusters of C={C} exceed the resident kernel's budget: "
-            "the DMA-pipelined kernel (K2) is not ported")
+    F = int(super_factor)
+    kernel = route(pd.num_clusters, pd.cluster_size, two_level, F)
 
     if sort:
         perm = sort_rays(o, d, mask, pd)
@@ -276,18 +336,25 @@ def trace_packets(o: Vec3, d: Vec3, pd: PacketData,
             Vec3(o.x[perm], o.y[perm], o.z[perm]),
             Vec3(d.x[perm], d.y[perm], d.z[perm]), pd, fine_td=fine_td,
             mask=mask[perm], tile_size=tile_size, max_clusters=max_clusters,
-            sort=False, resident_pack=resident_pack)
+            sort=False, two_level=two_level, super_factor=F,
+            super_list=super_list, resident_pack=resident_pack)
         t = torch.empty_like(h.t)
         tri = torch.empty_like(h.tri)
         t[perm] = h.t
         tri[perm] = h.tri
         return Hit(tri=tri, t=t)
 
-    sl = build_shortlists(o, d, mask, pd, tile_size, max_clusters)
-    packed, tri, boxes = (resident_pack if resident_pack is not None
-                          else pack_clusters(pd))
-    t_best, tri_best = dense_intersect_resident(
-        sl.ids, sl.counts, sl.entries, sl.rays, packed, tri, boxes)
+    sl = build_shortlists(o, d, mask, pd, tile_size, max_clusters,
+                          super_factor=F if kernel == "super" else None,
+                          super_list=super_list)
+    pack = resident_pack if resident_pack is not None else pack_clusters(pd)
+    args = (sl.ids, sl.counts, sl.entries, sl.rays, *pack)
+    if kernel == "super":
+        t_best, tri_best = dense_intersect_super(*args, F)
+    elif kernel == "stream":
+        t_best, tri_best = dense_intersect(*args)
+    else:
+        t_best, tri_best = dense_intersect_resident(*args)
     return _finish(o, d, t_best, tri_best, mask, sl.U, fine_td, R)
 
 

@@ -77,7 +77,7 @@ def _accum_update(state: AccumState, sample: Vec3,
 
 class PacketPrep(NamedTuple):
     """Scene-constant packet precompute, built once per render: the cluster
-    blocks and the kernel's scene layout (ops/kernels/dense_resident.py)."""
+    blocks and the kernels' scene layout (ops/kernels/dense_resident.py)."""
 
     pdata: packets.PacketData
     resident_pack: tuple
@@ -114,7 +114,8 @@ def make_trace_fn(scene, cfg: RenderConfig, bvh: Accel,
         h = packets.trace_packets(
             o, d, prep.pdata, fine_td=td, mask=mask, tile_size=ts,
             max_clusters=cfg.max_clusters, sort=cfg.packet_sort,
-            resident_pack=prep.resident_pack)
+            two_level=cfg.two_level_cull, super_factor=cfg.super_factor,
+            super_list=cfg.super_list, resident_pack=prep.resident_pack)
         if scene.num_spheres == 0:
             return h
         return traversal.trace_spheres(o, d, scene, h.t, h.tri, mask=mask)

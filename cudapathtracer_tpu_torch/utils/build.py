@@ -1,7 +1,7 @@
 """Builds the port's native libraries at first use, into ``build/``.
 
 A library's file name carries a hash of its compile command (compiler,
-flags) and of its sources' bytes, so a change to any of them builds a new
+flags) and of its sources' and included headers' bytes, so a change to any of them builds a new
 library instead of reusing a stale one. The compiler writes to a private
 temporary name that is then renamed into place, so processes that build at
 the same time never load a half-written file. A failed build raises with the
@@ -20,10 +20,10 @@ REPO_DIR = os.path.dirname(PACKAGE_DIR)
 BUILD_DIR = os.path.join(REPO_DIR, "build")
 
 
-def library_path(name: str, sources, compile_cmd) -> str:
+def library_path(name: str, sources, compile_cmd, headers=()) -> str:
     """``build/<stem>.<hash><ext>`` for ``name`` = ``<stem><ext>``."""
     h = hashlib.sha256("\0".join(compile_cmd).encode())
-    for src in sources:
+    for src in list(sources) + list(headers):
         if not os.path.exists(src):
             raise FileNotFoundError(f"kernel source missing: {src}")
         with open(src, "rb") as f:
@@ -32,11 +32,13 @@ def library_path(name: str, sources, compile_cmd) -> str:
     return os.path.join(BUILD_DIR, f"{stem}.{h.hexdigest()[:16]}{ext}")
 
 
-def build_and_load(name: str, sources, compile_cmd) -> ctypes.CDLL:
+def build_and_load(name: str, sources, compile_cmd,
+                   headers=()) -> ctypes.CDLL:
     """Compile ``sources`` with ``compile_cmd + [-o, out] + sources`` unless
-    a library built by the same command from the same sources exists, then
+    a library built by the same command from the same sources and
+    ``headers`` (included by the sources, not compiled alone) exists, then
     ``dlopen`` it."""
-    out = library_path(name, sources, compile_cmd)
+    out = library_path(name, sources, compile_cmd, headers)
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.tmp.{os.getpid()}"

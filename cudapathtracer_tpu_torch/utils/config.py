@@ -53,13 +53,13 @@ class RenderConfig:
     packet_rounds_bdpt: int = 1     # straggler rounds of BDPT's traces
     #                                 (not ported)
     packet_engine: str = "auto"     # 'auto' only (module docstring)
-    two_level_cull: bool | str | None = None  # False = flat cull; True and
-    #                                 'super' = two-level culls (not ported);
-    #                                 None = auto: flat up to 2048 clusters
-    super_factor: int = 8           # clusters per supercluster (not ported)
+    two_level_cull: bool | str | None = None  # False = flat cull;
+    #                                 'super' = supercluster shortlists;
+    #                                 True = capped two-level cull (not
+    #                                 ported); None = auto (ops/packets.route)
+    super_factor: int = 8           # clusters per supercluster
     super_slots: int = 16           # two-level expansion slots (not ported)
-    super_list: int = 255           # supers per 'super' shortlist (not
-    #                                 ported)
+    super_list: int = 255           # supers per 'super' shortlist
     sort_window: int = 0            # ray-sort window (0 = one global sort;
     #                                 windows are not ported)
     warm_start: int | None = None   # TPU kernel schedule (not ported)
@@ -104,20 +104,19 @@ class RenderConfig:
                                  f"one of {allowed}")
 
 
-# knobs of the JAX package's TPU kernel schedule, two-level cull and BDPT
-# traces; the port raises unless they keep their defaults
+# knobs of the JAX package's TPU kernel schedule, capped two-level cull and
+# BDPT traces; the port raises unless they keep their defaults
 SCHEDULE_KNOBS = ("tile_size_vis", "packet_first_round", "packet_rounds_bdpt",
-                  "super_factor", "super_slots", "super_list", "warm_start",
-                  "ray_groups")
+                  "super_slots", "warm_start", "ray_groups")
 
 
 def check_supported(cfg: RenderConfig) -> None:
     """Raise NotImplementedError, naming the knob, for a value the port
     does not implement: everything outside the PT+NEE packet path with the
-    flat cull and one round. The scene-dependent limits (the auto cull's
-    two-level choice past K = 2048 clusters, scenes past the resident
-    kernel's budget) are checked where K and C are known
-    (ops/packets.trace_packets)."""
+    flat or super cull and one round. The scene-dependent limit (the auto
+    cull's capped two-level choice past K = 2048 clusters when the scene
+    does not allow super shortlists) is checked where K and C are known
+    (ops/packets.route)."""
     if cfg.traversal != "packets":
         raise NotImplementedError(
             f"traversal={cfg.traversal!r}: the port renders through the "
@@ -134,9 +133,12 @@ def check_supported(cfg: RenderConfig) -> None:
     if cfg.sort_window > 0:
         raise NotImplementedError(
             f"sort_window={cfg.sort_window}: one global ray sort only")
-    if cfg.two_level_cull is not None and cfg.two_level_cull is not False:
+    if cfg.two_level_cull not in (None, False, "super"):
         raise NotImplementedError(
-            f"two_level_cull={cfg.two_level_cull!r}: flat cull only")
+            f"two_level_cull={cfg.two_level_cull!r}: the capped two-level "
+            "cull is not ported (flat, 'super' or auto only)")
+    if cfg.super_factor < 1:
+        raise ValueError(f"super_factor={cfg.super_factor}: must be >= 1")
     if cfg.vis_dropout:
         raise NotImplementedError("vis_dropout=True: not ported")
     if cfg.intersector != "bw":

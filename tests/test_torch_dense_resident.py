@@ -14,64 +14,16 @@ tests/test_torch_dense_resident.py``."""
 import numpy as np
 import pytest
 import torch
+from torch_fold_cases import jax_scene, packet_data, shortlists
 
-import cudapathtracer_tpu_torch as T
-from cudapathtracer_tpu_torch import convert
 from cudapathtracer_tpu_torch.models import procedural as tproc
-from cudapathtracer_tpu_torch.ops import packets as tpk
 from cudapathtracer_tpu_torch.ops.kernels import dense_resident as tdr
-from cudapathtracer_tpu_torch.ops.vecmath import Vec3 as TVec3
 from cudapathtracer_tpu_torch.render import renderer as tren
-from cudapathtracer_tpu_torch.render.camera import camera_rays
-
-
-def tv(v):
-    return TVec3(*(torch.from_numpy(np.array(c)) for c in v))
-
-
-def _rays(kind, n=256):
-    """(o, d, mask) numpy rays: camera rays at 16^2 or random ones."""
-    if kind == "camera":
-        o, d = camera_rays(T.make_camera(width=16, height=16, device="cpu"),
-                           torch.arange(n), None, lens=False)
-        o, d = [c.numpy() for c in o], [c.numpy() for c in d]
-    else:
-        rng = np.random.default_rng(3)
-        o = [rng.uniform(-0.8, 0.8, n).astype(np.float32) + off
-             for off in (0.0, 1.0, 0.0)]
-        d = [(rng.standard_normal(n) + 1e-3).astype(np.float32)
-             for _ in range(3)]
-    mask = (np.arange(n) % 7) != 0
-    return o, d, mask
-
-
-def _tpd(accel, device):
-    ts = tproc.to_scene(tproc.cornell_with_sphere_mesh(subdiv=2), device)
-    return tpk.make_packet_data(
-        ts, TVec3(accel.cl_lo_x, accel.cl_lo_y, accel.cl_lo_z),
-        TVec3(accel.cl_hi_x, accel.cl_hi_y, accel.cl_hi_z), accel.cl_tri)
 
 
 @pytest.fixture(scope="module")
 def scene():
-    import jax.numpy as jnp
-
-    from cudapathtracer_tpu.models import procedural as jproc
-    from cudapathtracer_tpu.ops import packets as jpk
-    from cudapathtracer_tpu.ops.pallas import dense_resident as jdr
-    from cudapathtracer_tpu.ops.vecmath import Vec3 as JVec3
-    from cudapathtracer_tpu.render.renderer import build_bvh_for_scene
-
-    js = jproc.to_scene(jproc.cornell_with_sphere_mesh(subdiv=2))
-    accel = build_bvh_for_scene(js, leaf_size=4, cluster_size=128)
-    jpd = jpk.make_packet_data(
-        js, JVec3(accel.cl_lo_x, accel.cl_lo_y, accel.cl_lo_z),
-        JVec3(accel.cl_hi_x, accel.cl_hi_y, accel.cl_hi_z), accel.cl_tri)
-    tpd = _tpd(convert.accel_from_jax(convert.to_numpy_dict(accel), "cpu"),
-               "cpu")
-    return dict(js=js, jpd=jpd, tpd=tpd, pack=tdr.pack_clusters(tpd),
-                jpack=jdr.pack_clusters_resident_bw(jpd),
-                jboxes=jdr.pack_cluster_boxes(jpd), jdr=jdr, jnp=jnp)
+    return jax_scene(subdiv=2)
 
 
 def test_resident_fits_matches_jax():
@@ -95,20 +47,10 @@ def test_pack_matches_jax_rows(scene):
             == np.arange(scene["js"].num_tris)).all()
 
 
-def _shortlists(tpd, kind, sort):
-    o, d, mask = _rays(kind)
-    o, d, mask = tv(o), tv(d), torch.from_numpy(mask)
-    if sort:
-        perm = tpk.sort_rays(o, d, mask, tpd)
-        o, d, mask = o.map(lambda c: c[perm]), d.map(lambda c: c[perm]), \
-            mask[perm]
-    return tpk.build_shortlists(o, d, mask, tpd, 64, 16)
-
-
 @pytest.mark.parametrize("kind,sort", [("camera", False), ("camera", True),
                                        ("random", True)])
 def test_plain_matches_pallas_interpret(scene, kind, sort):
-    sl = _shortlists(scene["tpd"], kind, sort)
+    sl = shortlists(scene["tpd"], kind, sort)
     assert int(sl.counts.max()) >= 2
     t, tri = tdr.dense_intersect_resident_plain(
         sl.ids, sl.counts, sl.entries, sl.rays, *scene["pack"])
@@ -125,7 +67,7 @@ def test_plain_matches_pallas_interpret(scene, kind, sort):
 
 
 def test_wrapper_takes_plain_version_on_cpu(scene):
-    sl = _shortlists(scene["tpd"], "camera", True)
+    sl = shortlists(scene["tpd"], "camera", True)
     before = (tdr.dense_intersect_resident.launches,
               tdr.dense_intersect_resident_plain.calls)
     got = tdr.dense_intersect_resident(sl.ids, sl.counts, sl.entries,
@@ -139,7 +81,7 @@ def test_wrapper_takes_plain_version_on_cpu(scene):
 
 
 def test_wrapper_checks_inputs(scene):
-    sl = _shortlists(scene["tpd"], "camera", True)
+    sl = shortlists(scene["tpd"], "camera", True)
     with pytest.raises(ValueError):
         tdr.dense_intersect_resident(sl.ids.long(), sl.counts, sl.entries,
                                      sl.rays, *scene["pack"])
@@ -154,8 +96,8 @@ def test_cuda_kernel_matches_plain(kind):
         pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
     dev = torch.device("cuda")
     ts = tproc.to_scene(tproc.cornell_with_sphere_mesh(subdiv=2), "cpu")
-    tpd = _tpd(tren.build_bvh_for_scene(ts, 4, cluster_size=128), "cpu")
-    sl = _shortlists(tpd, kind, True)
+    tpd = packet_data(tren.build_bvh_for_scene(ts, 4, cluster_size=128), ts)
+    sl = shortlists(tpd, kind, True)
     args = [a.to(dev) for a in (sl.ids, sl.counts, sl.entries, sl.rays,
                                 *tdr.pack_clusters(tpd))]
     n = tdr.dense_intersect_resident.launches

@@ -28,6 +28,7 @@ from cudapathtracer_tpu_torch import convert
 from cudapathtracer_tpu_torch.models import procedural as tproc
 from cudapathtracer_tpu_torch.ops import packets as tpk
 from cudapathtracer_tpu_torch.ops import traversal as ttrav
+from cudapathtracer_tpu_torch.ops.kernels import dense as tk2
 from cudapathtracer_tpu_torch.ops.kernels import dense_resident as tk1
 from cudapathtracer_tpu_torch.ops.vecmath import Vec3 as TVec3
 
@@ -153,12 +154,80 @@ def test_auto_engine_follows_the_device(setup):
 
 
 def test_unported_regimes_raise(setup):
+    """Past K = 2048 clusters without the resident layout, the auto cull
+    would take the capped two-level cull, which is not ported: it raises. A
+    scene past the resident kernel's budget (this C = 16 fixture: C is not
+    a multiple of 128) takes the stream route, K2, and is exact."""
     o, d, mask = setup["inputs"]["primary"]
     pd = setup["tpd"]
     many = pd._replace(cl_lo=pd.cl_lo.map(lambda c: c.repeat(200)),
                        cl_hi=pd.cl_hi.map(lambda c: c.repeat(200)))
     with pytest.raises(NotImplementedError, match="two_level_cull"):
         tpk.trace_packets(_tv(o), _tv(d), many)
-    wide = pd._replace(tri=pd.tri.repeat(1, 8192))
-    with pytest.raises(NotImplementedError, match="K2"):
-        tpk.trace_packets(_tv(o), _tv(d), wide)
+    assert tpk.route(pd.num_clusters, pd.cluster_size) == "stream"
+    calls = tk2.dense_intersect_plain.calls
+    hit = tpk.trace_packets(_tv(o), _tv(d), pd, fine_td=setup["ttd"],
+                            tile_size=64, max_clusters=8)
+    assert tk2.dense_intersect_plain.calls == calls + 1
+    brute = ttrav.trace_bruteforce(_tv(o), _tv(d), setup["ts"])
+    np.testing.assert_array_equal(hit.tri.numpy(), brute.tri.numpy())
+    np.testing.assert_array_equal(hit.t.numpy(), brute.t.numpy())
+
+
+# (K, C, two_level) -> route; None: raises. The JAX package's host build of
+# the colonnade: subdiv 3 at adaptive C = 256 (K = 115), subdiv 6 at
+# adaptive C = 1024 (K = 1,816), subdiv 5 at C = 256 (K = 1,842) and
+# C = 128 (K = 3,699), subdiv 6 at C = 512 (K = 3,700)
+ROUTES = [
+    ((115, 256, None), "resident"),
+    ((1816, 1024, None), "stream"),
+    ((1842, 256, "super"), "super"),
+    ((1842, 256, None), "resident"),
+    ((3699, 128, None), "super"),
+    ((3700, 512, None), None),
+    ((3700, 512, "super"), None),
+    ((100, 16, "super"), "stream"),
+]
+
+
+def _jax_route(K, C, two_level, F):
+    """The JAX package's kernel choice, from its conditions
+    (cudapathtracer_tpu/ops/packets.py:531-557, :754-780)."""
+    from cudapathtracer_tpu.ops.pallas.dense_resident import resident_fits
+
+    can_resident = C % 128 == 0 and resident_fits(K, C)
+    can_super = can_resident and K > 2 * F
+    use_super = two_level == "super" and can_super
+    if two_level == "super" and not use_super:
+        two_level = None
+    if two_level is None:
+        if K <= 2048:
+            two_level = False
+        elif can_super:
+            use_super = True
+        else:
+            two_level = True
+    if use_super:
+        return "super"
+    if two_level and K > F:
+        return None                      # the capped two-level XLA cull
+    return "resident" if can_resident else "stream"
+
+
+@pytest.mark.parametrize("args,want", ROUTES)
+def test_route_matches_jax(args, want):
+    assert _jax_route(*args, 8) == want
+    if want is None:
+        with pytest.raises(NotImplementedError, match="two_level_cull"):
+            tpk.route(*args, 8)
+    else:
+        assert tpk.route(*args, 8) == want
+
+
+def test_route_follows_the_budget(monkeypatch):
+    """route reads the port's copy of the resident budget at call time, as
+    the JAX package reads its own."""
+    assert tpk.route(115, 256) == "resident"
+    monkeypatch.setattr(tk1, "RESIDENT_VMEM_BUDGET", 1024)
+    assert tpk.route(115, 256) == "stream"
+    assert tpk.route(115, 256, "super", 8) == "stream"

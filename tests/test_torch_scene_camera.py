@@ -50,19 +50,30 @@ def test_render_config_defaults_field_by_field():
     (dict(sample_batch=2), "sample_batch"),
     (dict(sort_window=256), "sort_window"),
     (dict(two_level_cull=True), "two_level_cull"),
-    (dict(two_level_cull="super"), "two_level_cull"),
+    (dict(two_level_cull="super", super_slots=4), "super_slots"),
     (dict(vis_dropout=True), "vis_dropout"),
     (dict(intersector="mt"), "intersector"),
     (dict(traversal="bvh"), "traversal"),
     (dict(packet_engine="xla"), "packet_engine"),
     (dict(warm_start=2), "warm_start"),
     (dict(ray_groups=2), "ray_groups"),
-    (dict(super_factor=4), "super_factor"),
+    (dict(super_factor=4, super_slots=8), "super_slots"),
     (dict(tile_size_vis=64), "tile_size_vis"),
 ])
 def test_unsupported_knobs_raise(kw, knob):
     with pytest.raises(NotImplementedError, match=knob):
         check_supported(T.RenderConfig(**{"integrator": "pt_nee", **kw}))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(two_level_cull="super"),
+    dict(two_level_cull=False),
+    dict(two_level_cull="super", super_factor=4, super_list=31),
+])
+def test_super_cull_knobs_accepted(kw):
+    """The super cull and its knobs are ported; only super_slots, which
+    the capped two-level cull alone reads, stays at its default."""
+    check_supported(T.RenderConfig(**{"integrator": "pt_nee", **kw}))
 
 
 @pytest.mark.parametrize("name,kw", SCENES)
