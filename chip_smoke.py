@@ -5,10 +5,12 @@ its CUDA kernels K1, K2 and K3) at the JAX bench's sizes and checks them:
 
 1. device: a CUDA card is required; its name and power limit are printed;
 2. build: K1, K2, K3 (nvcc, sm_90a) and the native BVH builder, all
-   started together, timed;
+   started together, timed; each kernel's registers and spills as ptxas
+   reports them;
 3. K1 against its plain version at the headline shapes (the primary batch
    and a sorted bounce batch of a real pt_nee sample): differing ids, the
-   largest relative and absolute t gaps, both times, and K1's bound;
+   largest relative and absolute t gaps, both times, and K1's bound; K1's
+   counting instance: slots folded, lane tests issued, waste;
 4. fallback: 64x64 primary rays of the headline scene through the packet
    engine with a one-cluster shortlist, so the fine-BVH fallback runs on
    the card; the hits must equal brute force's;
@@ -20,8 +22,10 @@ its CUDA kernels K1, K2 and K3) at the JAX bench's sizes and checks them:
 7. stream route (K2): colonnade subdiv 6 (1,311,124 triangles, adaptive
    C = 1024, flat cull). K2 against its plain version on SAMPLE_TILES tiles
    spread over the primary and a sorted bounce batch, K2 against K1 bit for
-   bit on the full batches with both timed, one sample's trace calls, and
-   PATH_WINDOWS timed 1024^2 windows of PATH_SPP spp after a warm-up;
+   bit on the full batches with both timed in turns (K1, K2, K2, K1), both
+   counting instances (K2 must fold exactly K1's slots), one sample's trace
+   calls, and PATH_WINDOWS timed 1024^2 windows of PATH_SPP spp after a
+   warm-up;
 8. super route (K3): colonnade subdiv 5 (328,084 triangles), C = 256,
    two_level_cull="super", super_factor 8, super_list 255: the same steps,
    with K1 on the flat shortlists of the same rays beside K3.
@@ -31,7 +35,12 @@ version's call count set to 0 just before its timed windows and read just
 after; the path's kernel must have launched and nothing else may have run.
 A kernel's bound is the larger of the bytes its inputs need over the card's
 memory rate and the float32 operations of the ray-triangle tests they need
-over its float32 rate (``needed_work``). Each phase prints lines of its own;
+over its float32 rate (``ops/kernels/work.py:needed_work``). A kernel's
+counting instance gives the lane tests it issued (a lane test is one test
+body run by one lane, its result used or not); waste is issued over needed,
+and fold_fraction is slots (K3: members) folded over slots listed. Counting
+launches are not timed and are not the path's. Each phase prints lines of
+its own;
 any failure raises. The line before the last is a JSON summary of the
 kernels, the last line the device record.
 
@@ -129,66 +138,39 @@ def agreement(label, got, want, rays):
     return differ, max_abs
 
 
-def needed_work(sl, t_final, pack, num_tris, F=None):
-    """What these inputs need of a kernel, as a lower bound: the
-    ray-triangle tests (each live ray against each real triangle of each
-    listed cluster, or member of a listed super, whose box the ray enters
-    at or before its final t) and the bytes (the rays, counts, listed ids
-    and entries, the rows, ids and box of each cluster a needed test
-    touches, and the outputs). -> (tests, touched clusters, bytes)."""
-    packed, tri, boxes = pack
-    K1, _, C = packed.shape
-    K = K1 - 1
-    real = (tri < num_tris).sum(dim=1)                  # (K+1,)
-    Tl, M = sl.ids.shape
-    P = sl.rays.shape[2]
-    live = sl.rays[:, 6] > 0.5
-    o = sl.rays[:, 0:3]
-    d = sl.rays[:, 3:6]
-    inv = 1.0 / torch.where(d.abs() < 1e-30,
-                            torch.where(d < 0, -1e-30, 1e-30), d)
-    n_max = int(sl.counts.max()) if Tl else 0
-    width = n_max * (F or 1)
-    tests = 0
-    touched = torch.zeros(K1, dtype=torch.bool, device=packed.device)
-    step = max(1, (1 << 24) // max(1, width * P))
-    for a in range(0, Tl if n_max else 0, step):
-        b = min(Tl, a + step)
-        ids = sl.ids[a:b, :n_max].long()
-        ok = (torch.arange(n_max, device=ids.device)[None, :]
-              < sl.counts[a:b, None])
-        if F is not None:
-            j = torch.arange(F, device=ids.device)
-            ids = torch.clamp(ids[:, :, None] * F + j, max=K).flatten(1)
-            ok = ok.repeat_interleave(F, dim=1)
-        bx = boxes[ids]                                 # (n, width, 6)
-        lo = [(bx[:, :, k, None] - o[a:b, None, k]) * inv[a:b, None, k]
-              for k in range(3)]
-        hi = [(bx[:, :, 3 + k, None] - o[a:b, None, k]) * inv[a:b, None, k]
-              for k in range(3)]
-        tmin = torch.maximum(torch.maximum(torch.minimum(lo[0], hi[0]),
-                                           torch.minimum(lo[1], hi[1])),
-                             torch.minimum(lo[2], hi[2]))
-        tmax = torch.minimum(torch.minimum(torch.maximum(lo[0], hi[0]),
-                                           torch.maximum(lo[1], hi[1])),
-                             torch.maximum(lo[2], hi[2]))
-        need = ((tmin <= tmax) & (tmax >= 0) & (tmin <= t_final[a:b, None])
-                & live[a:b, None] & ok[:, :, None])     # (n, width, P)
-        per_cluster = need.sum(dim=2)
-        tests += int((per_cluster * real[ids]).sum())
-        touched[ids[per_cluster > 0]] = True
-        del lo, hi, tmin, tmax, need
-    n_touched = int(touched[:K].sum())
-    nbytes = (sl.rays.numel() * 4 + Tl * 4 + int(sl.counts.sum()) * 8
-              + n_touched * ((12 + 1) * C * 4 + 6 * 4) + Tl * P * 8)
-    return tests, n_touched, nbytes
-
-
 def bound(tests, nbytes):
     """(bound ms, "bytes" or "operations") on one H100."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = tests * OPS_PER_TEST / PEAK_F32_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def in_turns(fa, fb, reps):
+    """CUDA-event ms of ``fa`` and ``fb``, timed in turns a, b, b, a.
+    -> ((a1, a2), (b1, b2))."""
+    a1 = cuda_ms(fa, reps)
+    b1 = cuda_ms(fb, reps)
+    b2 = cuda_ms(fb, reps)
+    return (a1, cuda_ms(fa, reps)), (b1, b2)
+
+
+def fold_counts(label, name, fn, args, want, listed, needed):
+    """Run ``fn``'s counting instance on ``args`` and print its counts; its
+    hits must equal the timed instance's ``want``. -> (per-tile counts
+    (Tl, 2): slots folded, lane tests issued; total issued)."""
+    counts = torch.empty((args[0].shape[0], 2), dtype=torch.int64,
+                         device=args[0].device)
+    out = fn(*args, counts_out=counts)
+    if not (torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])):
+        raise AssertionError(f"{label}: {name}'s counting instance differs "
+                             "from its timed instance")
+    folded = int(counts[:, 0].sum())
+    issued = int(counts[:, 1].sum())
+    print(f"{label}: {name} slots_folded={folded} slots_listed={listed} "
+          f"fold_fraction={folded / max(listed, 1):.4f} "
+          f"lane_tests_issued={issued} tests_needed={needed} "
+          f"waste={issued / max(needed, 1):.3f}")
+    return counts, issued
 
 
 def sample_tiles(sl, n):
@@ -205,6 +187,7 @@ def record_batches(scene, trace_fn, cam, cfg, base_key):
     from cudapathtracer_tpu_torch.integrators.pt_nee import radiance_pt_nee
     from cudapathtracer_tpu_torch.ops.rng import pixel_keys, sample_key
     from cudapathtracer_tpu_torch.render.camera import camera_rays
+    from cudapathtracer_tpu_torch.utils.build import BUILD_LOG
 
     dev = cam.pos.x.device
     idx = torch.arange(cfg.num_pixels, dtype=torch.int64, device=dev)
@@ -241,6 +224,7 @@ def trace_breakdown(label, scene, trace_fn, cam, cfg, base_key):
     from cudapathtracer_tpu_torch.integrators.pt_nee import radiance_pt_nee
     from cudapathtracer_tpu_torch.ops.rng import pixel_keys, sample_key
     from cudapathtracer_tpu_torch.render.camera import camera_rays
+    from cudapathtracer_tpu_torch.utils.build import BUILD_LOG
 
     dev = cam.pos.x.device
     idx = torch.arange(cfg.num_pixels, dtype=torch.int64, device=dev)
@@ -307,13 +291,14 @@ def render_windows(label, kernels, expect, run, cfg, spp, windows):
 
 
 def kernel_entry(name, source, replaces, launches, max_abs, ms, plain_ms,
-                 bnd, tiles, plain_tiles):
+                 bnd, tiles, plain_tiles, issued, needed):
     return {"name": name, "route": "cuda",
             "source": f"cudapathtracer_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches,
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
-            "tiles": tiles, "plain_tiles": plain_tiles}
+            "tiles": tiles, "plain_tiles": plain_tiles,
+            "tests_issued": issued, "tests_needed": needed}
 
 
 def main():
@@ -338,10 +323,12 @@ def main():
     from cudapathtracer_tpu_torch.ops.kernels import dense as k2
     from cudapathtracer_tpu_torch.ops.kernels import dense_resident as k1
     from cudapathtracer_tpu_torch.ops.kernels import dense_super as k3
+    from cudapathtracer_tpu_torch.ops.kernels.work import needed_work
     from cudapathtracer_tpu_torch.ops.rng import (pixel_keys, prng_key,
                                                   sample_key)
     from cudapathtracer_tpu_torch.render import renderer
     from cudapathtracer_tpu_torch.render.camera import camera_rays
+    from cudapathtracer_tpu_torch.utils.build import BUILD_LOG
 
     kernels = {
         "k1": (k1.build, k1.dense_intersect_resident,
@@ -365,6 +352,10 @@ def main():
         build_s = {n: f.result() for n, f in futs.items()}
     print("build: " + " ".join(f"{n}_s={s:.2f}" for n, s in build_s.items())
           + f" wall_s={time.perf_counter() - t0:.2f}")
+    for lib, log in BUILD_LOG.items():
+        for line in log.splitlines():
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
+                print(f"ptxas[{lib}]: {line.strip()}")
 
     base_key = prng_key(1234, dev)
 
@@ -426,6 +417,10 @@ def main():
               f"k1_ms={k1_ms:.4f} plain_ms={k1_plain_ms:.1f} tests={tests} "
               f"clusters_touched={touched} bytes={nbytes} "
               f"bound_ms={k1_bound[0]:.4f} bound_by={k1_bound[1]}")
+        _, k1_issued = fold_counts(f"fold[{name}]", "k1",
+                                   k1.dense_intersect_resident, args, got,
+                                   int(sl.counts.sum()), tests)
+        k1_needed = tests
     k1_max_abs = max_abs      # the JSON line keeps the bounce batch's times
 
     # ---- 4. fine-BVH fallback on the card ----------------------------------
@@ -469,7 +464,8 @@ def main():
     entries = [kernel_entry(
         "dense_resident", "dense_resident.cu",
         "cudapathtracer_tpu/ops/pallas/dense_resident.py:999", k1_launches,
-        k1_max_abs, k1_ms, k1_plain_ms, k1_bound, k1_tiles, k1_tiles)]
+        k1_max_abs, k1_ms, k1_plain_ms, k1_bound, k1_tiles, k1_tiles,
+        k1_issued, k1_needed)]
     del scene, bvh, prep, trace_fn, window, batches
 
     # ---- 7. / 8. the stream and super routes -------------------------------
@@ -496,22 +492,26 @@ def main():
             args = (sl.ids, sl.counts, sl.entries, sl.rays,
                     *prep.resident_pack)
             got = wrapper(*args, *extra)
-            ms = cuda_ms(lambda: wrapper(*args, *extra), 3)
             # K1 beside it on the same rays: the same shortlists on the
             # stream route, the flat ones on the super route
             flat = sorted_shortlists(batch, pd, P, cfg) if F else sl
             fargs = (flat.ids, flat.counts, flat.entries, flat.rays,
                      *prep.resident_pack)
             ref = k1.dense_intersect_resident(*fargs)
-            k1_full_ms = cuda_ms(lambda: k1.dense_intersect_resident(*fargs),
-                                 3)
+            (k1_a, k1_b), (ms_a, ms_b) = in_turns(
+                lambda: k1.dense_intersect_resident(*fargs),
+                lambda: wrapper(*args, *extra), 3)
+            ms = (ms_a + ms_b) / 2
+            k1_full_ms = (k1_a + k1_b) / 2
             same = (torch.equal(got[0], ref[0])
                     and torch.equal(got[1], ref[1]))
             n_diff = int((got[1] != ref[1]).sum())
             print(f"kernel[{label}/{bname}]: {want} vs k1 on all "
                   f"{sl.ids.shape[0]} tiles: bit_identical={same} "
                   f"differing_ids={n_diff} {want}_ms={ms:.4f} "
-                  f"k1_ms={k1_full_ms:.4f} (k1 on the "
+                  f"({ms_a:.4f}, {ms_b:.4f}) k1_ms={k1_full_ms:.4f} "
+                  f"({k1_a:.4f}, {k1_b:.4f}; in turns k1, {want}, {want}, "
+                  f"k1) k1_over_{want}={k1_full_ms / ms:.3f} (k1 on the "
                   f"{'flat' if F else 'same'} shortlists)")
             # K2 folds exactly K1's slots in K1's order; K3 and K1 fold
             # different lists, each exact against the plain fold
@@ -537,12 +537,25 @@ def main():
                   f"{sl_ms:.3f} tests={tests} "
                   f"clusters_touched={touched} bytes={nbytes} "
                   f"bound_ms={bnd[0]:.4f} bound_by={bnd[1]}")
+            label_f = f"fold[{label}/{bname}]"
+            c_new, issued = fold_counts(
+                label_f, want, lambda *a, **kw: wrapper(*a, *extra, **kw),
+                args, got, int(sl.counts.sum()) * (F or 1), tests)
+            k1_needed = (needed_work(flat, ref[0], prep.resident_pack,
+                                     scene.num_tris)[0] if F else tests)
+            c_k1, _ = fold_counts(label_f, "k1", k1.dense_intersect_resident,
+                                  fargs, ref, int(flat.counts.sum()),
+                                  k1_needed)
+            # K2 folds K1's slots, tile by tile
+            if label == "stream" and not torch.equal(c_new[:, 0], c_k1[:, 0]):
+                raise AssertionError("k2 did not fold exactly K1's slots")
         trace_breakdown(label, scene, trace_fn, cam, cfg, base_key)
         launches = render_windows(label, kernels, want, window, cfg,
                                   PATH_SPP, PATH_WINDOWS)
         entries.append(kernel_entry(name, source, replaces, launches,
                                     max_abs, ms, plain_ms, bnd,
-                                    sl.ids.shape[0], part.ids.shape[0]))
+                                    sl.ids.shape[0], part.ids.shape[0],
+                                    issued, tests))
         del scene, bvh, prep, trace_fn, window, batches, sl, flat, part
         torch.cuda.empty_cache()
 

@@ -1,10 +1,11 @@
 """ctypes binding of the native binned-SAH BVH builder.
 
-The port builds the JAX package's own C++ source,
-``cudapathtracer_tpu/native/bvh_builder.cpp``, with ``g++`` into ``build/``
-(reading a source file imports nothing from that package) with the flags of
-that package's Makefile, so both packages build identical trees. The
-``-ffp-contract=off`` flag is what keeps the SAH scores rounding alike.
+The port keeps its own byte-for-byte copy of the JAX package's C++ builder,
+``csrc/bvh_builder.cpp`` (the original is
+``cudapathtracer_tpu/native/bvh_builder.cpp``), and builds it with ``g++``
+into ``build/`` with the flags of that package's Makefile, so both packages
+build identical trees. The ``-ffp-contract=off`` flag is what keeps the SAH
+scores rounding alike.
 A failed build raises; there is no slower fallback builder.
 """
 
@@ -16,10 +17,9 @@ import os
 
 import numpy as np
 
-from ..utils.build import REPO_DIR, build_and_load
+from ..utils.build import PACKAGE_DIR, build_and_load
 
-SOURCE = os.path.join(REPO_DIR, "cudapathtracer_tpu", "native",
-                      "bvh_builder.cpp")
+SOURCE = os.path.join(PACKAGE_DIR, "csrc", "bvh_builder.cpp")
 CXX_FLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-fPIC",
              "-shared", "-std=c++17"]
 

@@ -1,13 +1,14 @@
 // Device functions shared by the three dense cluster kernels (K1
 // dense_resident.cu, K2 dense.cu, K3 dense_super.cu): the ray's state, the
-// per-ray cluster box gate, the synchronous staging of one cluster into
-// shared memory and the Baldwin-Weber closest-hit fold.
+// per-ray cluster box gate, the Baldwin-Weber test of one ray against one
+// triangle, and K1's synchronous staging of one cluster into shared memory
+// and its ray-stationary fold.
 //
-// All three kernels fold through the same function, built with -fmad=false,
-// so they round alike: the fold forms, with __fmaf_rn, exactly the fused
-// multiply-adds that XLA forms for the JAX package's formulas, the plain
-// PyTorch version (ops/kernels/dense_resident.py) emulates them exactly, and
-// the compiler fuses nothing else.
+// Every kernel tests through bw_test, built with -fmad=false, so they round
+// alike: the test forms, with __fmaf_rn, exactly the fused multiply-adds
+// that XLA forms for the JAX package's formulas, the plain PyTorch version
+// (ops/kernels/dense_resident.py) emulates them exactly, and the compiler
+// fuses nothing else. K2 and K3 fold through gated_fold.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -82,39 +83,63 @@ __device__ __forceinline__ void stage_cluster(
   for (int i = lane; i < C; i += P) cl_id[i] = src_id[i];
 }
 
-// Fold n triangles into (t, best): row k of triangle c is cl[k * ld + c].
-// Keeps the lexicographic minimum of (t, id), i.e. exact-t ties go to the
-// lower triangle id.
+// One triangle's 12 Baldwin-Weber rows: n, v0, m1, m2.
+struct Tri {
+  float nx, ny, nz, vx, vy, vz, ax, ay, az, bx, by, bz;
+};
+
+// Row k of triangle c is rows[k * ld + c].
+__device__ __forceinline__ Tri load_tri(const float* rows, int ld, int c) {
+  Tri q;
+  q.nx = rows[0 * ld + c];
+  q.ny = rows[1 * ld + c];
+  q.nz = rows[2 * ld + c];
+  q.vx = rows[3 * ld + c];
+  q.vy = rows[4 * ld + c];
+  q.vz = rows[5 * ld + c];
+  q.ax = rows[6 * ld + c];
+  q.ay = rows[7 * ld + c];
+  q.az = rows[8 * ld + c];
+  q.bx = rows[9 * ld + c];
+  q.by = rows[10 * ld + c];
+  q.bz = rows[11 * ld + c];
+  return q;
+}
+
+// The ray's hit distance on triangle q, or MAX_FLOAT where it misses.
+__device__ __forceinline__ float bw_test(const Tri& q, float ox, float oy,
+                                         float oz, float dx, float dy,
+                                         float dz) {
+  const float sx = ox - q.vx, sy = oy - q.vy, sz = oz - q.vz;
+  // a.x*b.x + a.y*b.y + a.z*b.z as fma(a.z, b.z, fma(a.x, b.x, a.y*b.y))
+  // and s + d*t as fma(d, t, s): the fused multiply-adds that XLA forms
+  // for the reference's formulas (ops/vecmath.py)
+  const float nd = __fmaf_rn(dz, q.nz, __fmaf_rn(dx, q.nx, dy * q.ny));
+  const bool parallel = fabsf(nd) < kEpsParallel;
+  const float inv = 1.0f / nd;
+  const float tt = -__fmaf_rn(sz, q.nz, __fmaf_rn(sx, q.nx, sy * q.ny)) * inv;
+  const float wx = __fmaf_rn(dx, tt, sx);
+  const float wy = __fmaf_rn(dy, tt, sy);
+  const float wz = __fmaf_rn(dz, tt, sz);
+  const float bu = __fmaf_rn(q.az, wz, __fmaf_rn(q.ax, wx, q.ay * wy));
+  const float bv = __fmaf_rn(q.bz, wz, __fmaf_rn(q.bx, wx, q.by * wy));
+  const float bw = 1.0f - bu - bv;
+  // all-zero padding and sentinel triangles have n = 0: parallel
+  const bool reject = parallel || bu < 0.0f || bv < 0.0f || bw < 0.0f
+                      || tt <= 0.0f;
+  return reject ? kMaxFloat : tt;
+}
+
+// K1's fold of n triangles into (t, best), one ray per thread: row k of
+// triangle c is cl[k * ld + c]. Keeps the lexicographic minimum of (t, id),
+// i.e. exact-t ties go to the lower triangle id.
 __device__ __forceinline__ void bw_fold(const float* cl,
                                         const int32_t* cl_id, int ld, int n,
                                         const Ray& r, float& t,
                                         int32_t& best) {
   for (int c = 0; c < n; ++c) {
-    const float nx = cl[0 * ld + c], ny = cl[1 * ld + c];
-    const float nz = cl[2 * ld + c];
-    const float sx = r.ox - cl[3 * ld + c], sy = r.oy - cl[4 * ld + c];
-    const float sz = r.oz - cl[5 * ld + c];
-    // a.x*b.x + a.y*b.y + a.z*b.z as fma(a.z, b.z, fma(a.x, b.x, a.y*b.y))
-    // and s + d*t as fma(d, t, s): the fused multiply-adds that XLA forms
-    // for the reference's formulas (ops/vecmath.py)
-    const float nd = __fmaf_rn(r.dz, nz, __fmaf_rn(r.dx, nx, r.dy * ny));
-    const bool parallel = fabsf(nd) < kEpsParallel;
-    const float inv = 1.0f / nd;
-    const float tt = -__fmaf_rn(sz, nz, __fmaf_rn(sx, nx, sy * ny)) * inv;
-    const float wx = __fmaf_rn(r.dx, tt, sx);
-    const float wy = __fmaf_rn(r.dy, tt, sy);
-    const float wz = __fmaf_rn(r.dz, tt, sz);
-    const float bu = __fmaf_rn(cl[8 * ld + c], wz,
-                               __fmaf_rn(cl[6 * ld + c], wx,
-                                         cl[7 * ld + c] * wy));
-    const float bv = __fmaf_rn(cl[11 * ld + c], wz,
-                               __fmaf_rn(cl[9 * ld + c], wx,
-                                         cl[10 * ld + c] * wy));
-    const float bw = 1.0f - bu - bv;
-    // all-zero padding and sentinel triangles have n = 0: parallel
-    const bool reject = parallel || bu < 0.0f || bv < 0.0f || bw < 0.0f
-                        || tt <= 0.0f;
-    const float ts = reject ? kMaxFloat : tt;
+    const float ts = bw_test(load_tri(cl, ld, c), r.ox, r.oy, r.oz, r.dx,
+                             r.dy, r.dz);
     const int32_t id = cl_id[c];
     if (ts < t || (ts == t && id < best)) {
       t = ts;

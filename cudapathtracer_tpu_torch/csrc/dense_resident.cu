@@ -31,7 +31,14 @@
 // multiply-adds that XLA forms for the JAX package's formulas, and the
 // plain version emulates them exactly; -fmad=false keeps the compiler from
 // fusing anything else, so the two round alike bit for bit. The gate, the
-// staging and the fold live in bw_fold.cuh, shared with K2 and K3.
+// staging and the fold live in bw_fold.cuh. K1 is the ray-stationary
+// yardstick of the gated fold that K2 and K3 run (gated_fold.cuh): a warp
+// in which one ray passes the gate runs all C tests on all 32 lanes.
+//
+// Counting instance (kCount, for measurements only; the timed instance is
+// compiled without it): per tile, the slots folded and the lane tests
+// issued, 32 * C for every warp that runs the fold of a slot, into
+// counts_out (Tl, 2) int64, which the caller zeroes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,6 +49,7 @@ namespace {
 
 using bwfold::kRows;
 
+template <bool kCount>
 __global__ void dense_resident_kernel(
     const int32_t* __restrict__ ids,       // (Tl, M) shortlist cluster ids
     const int32_t* __restrict__ counts,    // (Tl,) valid slots per tile
@@ -52,6 +60,7 @@ __global__ void dense_resident_kernel(
     const float* __restrict__ boxes,       // (K+1, 6) lo.xyz, hi.xyz
     float* __restrict__ t_out,             // (Tl, P)
     int32_t* __restrict__ tri_out,         // (Tl, P)
+    long long* __restrict__ counts_out,    // (Tl, 2) or null
     int M, int C) {
   extern __shared__ float smem[];
   float* cl = smem;                                   // kRows * C
@@ -63,6 +72,7 @@ __global__ void dense_resident_kernel(
   float t;
   int32_t best = -1;
   const bwfold::Ray r = bwfold::load_ray(rays, tile, P, lane, &t);
+  long long folded = 0, issued = 0;
 
   const int cnt = counts[tile];
   for (int s = 0; s < cnt; ++s) {
@@ -73,11 +83,22 @@ __global__ void dense_resident_kernel(
     if (!__syncthreads_or(pass)) continue;
     bwfold::stage_cluster(cl, cl_id, packed, tri, sid, C, lane, P);
     __syncthreads();
+    if (kCount) {
+      folded += 1;
+      if (__ballot_sync(0xffffffffu, pass) != 0u) issued += 32LL * C;
+    }
     if (pass) bwfold::bw_fold(cl, cl_id, C, C, r, t, best);
     __syncthreads();  // the next slot's load overwrites shared memory
   }
   t_out[tile * P + lane] = t;
   tri_out[tile * P + lane] = best;
+  if (kCount) {
+    if (lane == 0) counts_out[tile * 2] = folded;
+    if ((lane & 31) == 0 && issued)
+      atomicAdd(reinterpret_cast<unsigned long long*>(counts_out + tile * 2
+                                                      + 1),
+                static_cast<unsigned long long>(issued));
+  }
 }
 
 }  // namespace
@@ -85,17 +106,21 @@ __global__ void dense_resident_kernel(
 extern "C" int dense_resident_launch(
     const void* ids, const void* counts, const void* entries,
     const void* rays, const void* packed, const void* tri, const void* boxes,
-    void* t_out, void* tri_out, int Tl, int M, int P, int C, void* stream) {
+    void* t_out, void* tri_out, void* counts_out, int Tl, int M, int P,
+    int C, void* stream) {
   const size_t smem = static_cast<size_t>(kRows + 1) * C * sizeof(float);
+  auto kernel = counts_out ? &dense_resident_kernel<true>
+                           : &dense_resident_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      dense_resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dense_resident_kernel<<<Tl, P, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<Tl, P, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(ids), static_cast<const int32_t*>(counts),
       static_cast<const float*>(entries), static_cast<const float*>(rays),
       static_cast<const float*>(packed), static_cast<const int32_t*>(tri),
       static_cast<const float*>(boxes), static_cast<float*>(t_out),
-      static_cast<int32_t*>(tri_out), M, C);
+      static_cast<int32_t*>(tri_out), static_cast<long long*>(counts_out),
+      M, C);
   return static_cast<int>(cudaGetLastError());
 }

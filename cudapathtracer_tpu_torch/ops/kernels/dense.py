@@ -4,15 +4,17 @@ The CUDA kernel (``csrc/dense.cu``) replaces the Pallas TPU kernel
 ``cudapathtracer_tpu/ops/pallas/dense.py:dense_intersect``; the note at the
 top of the CUDA source says what bounds it on the card and what its design
 does about that. It computes K1's function (``dense_resident.py``) on K1's
-inputs and scene layout (``pack_clusters``), and streams cluster chunks into
-shared memory with ``cp.async`` ahead of the fold.
+inputs and scene layout (``pack_clusters``) through the gated fold
+(``csrc/gated_fold.cuh``): per slot, only the rays that pass the cluster's
+gate are folded, each thread testing one triangle against them.
 
 * ``dense_intersect_plain``: K1's plain fold, under its own name and with
   its own call count, as the JAX module imports its fold from the resident
   one (dense.py:47-71).
 * ``dense_intersect``, the wrapper: K2 on CUDA tensors (raising if the build
   or the launch fails), the plain version only for tensors on the CPU.
-  ``launches`` counts kernel launches.
+  ``launches`` counts kernel launches. ``counts_out`` selects the counting
+  instance, as for K1.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import os
 
 from ...utils.build import PACKAGE_DIR
 from .dense_resident import (
+    GATED_FOLD_FLAGS,
     is_cpu,
     launch_fold,
     load_fold_kernel,
@@ -43,7 +46,7 @@ dense_intersect_plain.calls = 0
 @functools.cache
 def _load_kernel():
     return load_fold_kernel("libdense_stream.so", SOURCE,
-                            "dense_stream_launch", 5)
+                            "dense_stream_launch", 5, flags=GATED_FOLD_FLAGS)
 
 
 def build():
@@ -52,16 +55,16 @@ def build():
     _load_kernel()
 
 
-def dense_intersect(ids, counts, entries, rays, packed, tri, boxes):
-    """K2 on CUDA tensors; the plain version for tensors on the CPU."""
-    if is_cpu(rays):
+def dense_intersect(ids, counts, entries, rays, packed, tri, boxes,
+                    counts_out=None):
+    """K2 on CUDA tensors (its counting instance given ``counts_out``); the
+    plain version for tensors on the CPU."""
+    if is_cpu(rays, counts_out):
         return dense_intersect_plain(ids, counts, entries, rays, packed, tri,
                                      boxes)
-    # 16-byte copies need C a multiple of 4 and 16-byte aligned arrays
-    vec = int(packed.shape[-1] % 4 == 0 and packed.data_ptr() % 16 == 0
-              and tri.data_ptr() % 16 == 0)
     out = launch_fold(_load_kernel, "dense", ids, counts, entries, rays,
-                      packed, tri, boxes, extra=(vec,))
+                      packed, tri, boxes, extra=(packed.shape[0] - 1,),
+                      counts_out=counts_out)
     dense_intersect.launches += 1
     return out
 

@@ -18,9 +18,14 @@ what its design does about that. Beside it:
   CUDA tensors (and raises if the build or the launch fails) and takes the
   plain version only for tensors on the CPU. ``launches`` counts kernel
   launches; ``dense_intersect_resident_plain.calls`` counts plain calls.
+  Given ``counts_out`` (Tl, 2) int64 on the card, it launches the kernel's
+  counting instance instead, which also writes per tile the slots folded
+  and the lane tests issued (a lane test is one test body run by one lane,
+  its result used or not); the main path never passes it.
 * What K2 (``dense.py``) and K3 (``dense_super.py``) share with K1: the
   uncounted plain fold ``plain_fold``, the input checks, the build
-  (``load_fold_kernel``) and the launch (``launch_fold``).
+  (``load_fold_kernel``) and the launch (``launch_fold``), and the gated
+  fold's closest-hit key (``fold_key``, ``unpack_key``; for tests).
 
 Inputs, for Tl tiles of P rays and a shortlist of M slots:
 ids (Tl, M) i32 cluster ids ascending by entry, with K past each count;
@@ -44,9 +49,18 @@ from ...utils.build import PACKAGE_DIR, build_and_load
 from ...utils.constants import EPS_PARALLEL, MAX_FLOAT
 
 SOURCE = os.path.join(PACKAGE_DIR, "csrc", "dense_resident.cu")
-HEADER = os.path.join(PACKAGE_DIR, "csrc", "bw_fold.cuh")
+HEADERS = [os.path.join(PACKAGE_DIR, "csrc", h)
+           for h in ("bw_fold.cuh", "gated_fold.cuh")]
+# -Xptxas -v: the build log keeps each kernel's registers and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC"]
+# K2 and K3 (the gated fold) build with at most 64 registers a thread, so an
+# SM holds 2048 of their threads; uncapped, K3 takes 82 and fits 2 blocks of
+# 256. On one H100 80GB HBM3 (700 W) the cap made K3 1.3-1.7x and K2
+# 1.06-1.08x faster at chip_smoke.py's shapes, for 32 bytes of spills
+# (tools/tune_gated_fold.py).
+GATED_FOLD_FLAGS = ["-maxrregcount=64"]
 ROWS = 12
 MASKED_T_INIT = -3.0e38
 _FAR_BOX = 1.0e7
@@ -159,28 +173,56 @@ def dense_intersect_resident_plain(ids, counts, entries, rays, packed, tri,
 dense_intersect_resident_plain.calls = 0
 
 
-def load_fold_kernel(lib_name: str, source: str, symbol: str, n_ints: int):
-    """Build ``source`` (with bw_fold.cuh) into ``build/lib_name`` and bind
-    ``symbol(9 pointers, n_ints ints, stream) -> cudaError_t``."""
+def fold_key(t, tri_id):
+    """The gated fold's closest-hit key (``csrc/gated_fold.cuh:fold_key``)
+    as int64, for tests: (t's float32 bits, the low 31 flipped for negative
+    t) * 2^32 + (id + 1), whose order is the lexicographic order of
+    (t, id)."""
+    b = t.to(torch.float32).contiguous().view(torch.int32).to(torch.int64)
+    hi = b ^ ((b >> 31) & 0x7FFFFFFF)
+    return hi * (1 << 32) + ((tri_id.to(torch.int64) + 1) & 0xFFFFFFFF)
+
+
+def unpack_key(key):
+    """``fold_key``'s inverse: int64 keys -> (t f32, id i32)."""
+    hi = key >> 32
+    bits = (hi ^ ((hi >> 31) & 0x7FFFFFFF)).to(torch.int32)
+    return bits.view(torch.float32), ((key & 0xFFFFFFFF) - 1).to(torch.int32)
+
+
+def load_fold_kernel(lib_name: str, source: str, symbol: str, n_ints: int,
+                     flags=()):
+    """Build ``source`` (with its headers; NVCC_FLAGS and ``flags``) into
+    ``build/lib_name`` and bind ``symbol(10 pointers, n_ints ints, stream)
+    -> cudaError_t``."""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    lib = build_and_load(lib_name, [source], [nvcc] + NVCC_FLAGS,
-                         headers=[HEADER])
+    lib = build_and_load(lib_name, [source], [nvcc] + NVCC_FLAGS + list(flags),
+                         headers=HEADERS)
     fn = getattr(lib, symbol)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * n_ints
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * n_ints
                    + [ctypes.c_void_p])
     return fn
 
 
 def launch_fold(load, name, ids, counts, entries, rays, packed, tri, boxes,
-                extra=()):
+                extra=(), counts_out=None):
     """Check the inputs, launch ``load()``'s kernel with (pointers, Tl, M,
     P, C, *extra) on the current stream and return (t, tri); raise if the
-    launch fails."""
+    launch fails. With ``counts_out`` (Tl, 2) int64, zero it and launch the
+    counting instance."""
     Tl, M, P, C = _check_inputs(ids, counts, entries, rays, packed, tri,
                                 boxes)
     if P % 32 != 0 or not 0 < P <= 1024:
         raise ValueError(f"tile size {P} must be a multiple of 32 <= 1024")
+    if counts_out is not None:
+        if (tuple(counts_out.shape) != (Tl, 2)
+                or counts_out.dtype != torch.int64
+                or counts_out.device != rays.device
+                or not counts_out.is_contiguous()):
+            raise ValueError(f"counts_out must be contiguous int64 (Tl, 2) "
+                             f"on {rays.device}")
+        counts_out.zero_()
     t = torch.empty((Tl, P), dtype=torch.float32, device=rays.device)
     tri_out = torch.empty((Tl, P), dtype=torch.int32, device=rays.device)
     if Tl == 0:
@@ -191,17 +233,22 @@ def launch_fold(load, name, ids, counts, entries, rays, packed, tri, boxes,
         err = fn(ids.data_ptr(), counts.data_ptr(), entries.data_ptr(),
                  rays.data_ptr(), packed.data_ptr(), tri.data_ptr(),
                  boxes.data_ptr(), t.data_ptr(), tri_out.data_ptr(),
+                 None if counts_out is None else counts_out.data_ptr(),
                  Tl, M, P, C, *extra, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return t, tri_out
 
 
-def is_cpu(rays):
+def is_cpu(rays, counts_out=None):
     """True for CPU tensors (take the plain version), False for CUDA ones
-    (launch the kernel); any other device raises."""
+    (launch the kernel); any other device raises, and so does a
+    ``counts_out`` on the CPU: only a kernel has a schedule to count."""
     if rays.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {rays.device}")
+    if rays.device.type == "cpu" and counts_out is not None:
+        raise ValueError("counts_out counts a CUDA kernel's work; the plain "
+                         "version has none")
     return rays.device.type == "cpu"
 
 
@@ -217,13 +264,15 @@ def build():
     _load_kernel()
 
 
-def dense_intersect_resident(ids, counts, entries, rays, packed, tri, boxes):
-    """K1 on CUDA tensors; the plain version for tensors on the CPU."""
-    if is_cpu(rays):
+def dense_intersect_resident(ids, counts, entries, rays, packed, tri, boxes,
+                             counts_out=None):
+    """K1 on CUDA tensors (its counting instance given ``counts_out``); the
+    plain version for tensors on the CPU."""
+    if is_cpu(rays, counts_out):
         return dense_intersect_resident_plain(ids, counts, entries, rays,
                                               packed, tri, boxes)
     out = launch_fold(_load_kernel, "dense_resident", ids, counts, entries,
-                      rays, packed, tri, boxes)
+                      rays, packed, tri, boxes, counts_out=counts_out)
     dense_intersect_resident.launches += 1
     return out
 

@@ -18,7 +18,9 @@ entries are the supers' entry distances, ascending. Rays, scene layout
   matter.
 * ``dense_intersect_super``, the wrapper: K3 on CUDA tensors (raising if the
   build or the launch fails), the plain version only for tensors on the
-  CPU. ``launches`` counts kernel launches.
+  CPU. ``launches`` counts kernel launches. ``counts_out`` selects the
+  counting instance, as for K1; its first column counts members folded.
+  The kernel keeps a super's member gates in a 32-bit mask: F <= 32.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 
 from ...utils.build import PACKAGE_DIR
 from .dense_resident import (
+    GATED_FOLD_FLAGS,
     is_cpu,
     launch_fold,
     load_fold_kernel,
@@ -69,7 +72,7 @@ dense_intersect_super_plain.calls = 0
 @functools.cache
 def _load_kernel():
     return load_fold_kernel("libdense_super.so", SOURCE,
-                            "dense_super_launch", 6)
+                            "dense_super_launch", 6, flags=GATED_FOLD_FLAGS)
 
 
 def build():
@@ -79,16 +82,20 @@ def build():
 
 
 def dense_intersect_super(ids, counts, entries, rays, packed, tri, boxes,
-                          F: int):
-    """K3 on CUDA tensors; the plain version for tensors on the CPU."""
+                          F: int, counts_out=None):
+    """K3 on CUDA tensors (its counting instance given ``counts_out``); the
+    plain version for tensors on the CPU."""
     if F < 1:
         raise ValueError(f"super_factor {F} must be at least 1")
-    if is_cpu(rays):
+    if is_cpu(rays, counts_out):
         return dense_intersect_super_plain(ids, counts, entries, rays,
                                            packed, tri, boxes, F)
+    if F > 32:
+        raise ValueError(f"super_factor {F}: the kernel takes at most 32")
     out = launch_fold(_load_kernel, "dense_super", ids, counts, entries,
                       rays, packed, tri, boxes,
-                      extra=(int(F), packed.shape[0] - 1))
+                      extra=(int(F), packed.shape[0] - 1),
+                      counts_out=counts_out)
     dense_intersect_super.launches += 1
     return out
 

@@ -1,0 +1,69 @@
+"""What the dense fold kernels' inputs need of them, as a lower bound: the
+yardstick for their times (the bound that ``chip_smoke.py`` computes) and for
+their counting instances (lane tests issued against tests needed).
+
+A ray needs a test of every real triangle (an id below the triangle count,
+and a normal that is not zero: a degenerate triangle never hits) of every
+listed cluster (or member of a listed super) whose box it enters at or
+before its final t; the box test is the kernels' gate
+(``csrc/bw_fold.cuh:box_gate``). The bytes are
+the rays, counts, listed ids and entries, the rows, ids and box of each
+cluster a needed test touches, and the outputs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def needed_work(sl, t_final, pack, num_tris, F=None):
+    """-> (tests, touched clusters, bytes) for shortlists ``sl``
+    (``packets.Shortlists``; in super units with ``F``), the kernel's final
+    t (Tl, P) and ``pack_clusters``'s (packed, tri, boxes)."""
+    packed, tri, boxes = pack
+    K1, _, C = packed.shape
+    K = K1 - 1
+    real = ((tri < num_tris)
+            & (packed[:, 0:3] != 0).any(dim=1)).sum(dim=1)  # (K+1,)
+    Tl, M = sl.ids.shape
+    P = sl.rays.shape[2]
+    live = sl.rays[:, 6] > 0.5
+    o = sl.rays[:, 0:3]
+    d = sl.rays[:, 3:6]
+    inv = 1.0 / torch.where(d.abs() < 1e-30,
+                            torch.where(d < 0, -1e-30, 1e-30), d)
+    n_max = int(sl.counts.max()) if Tl else 0
+    width = n_max * (F or 1)
+    tests = 0
+    touched = torch.zeros(K1, dtype=torch.bool, device=packed.device)
+    step = max(1, (1 << 24) // max(1, width * P))
+    for a in range(0, Tl if n_max else 0, step):
+        b = min(Tl, a + step)
+        ids = sl.ids[a:b, :n_max].long()
+        ok = (torch.arange(n_max, device=ids.device)[None, :]
+              < sl.counts[a:b, None])
+        if F is not None:
+            j = torch.arange(F, device=ids.device)
+            ids = torch.clamp(ids[:, :, None] * F + j, max=K).flatten(1)
+            ok = ok.repeat_interleave(F, dim=1)
+        bx = boxes[ids]                                 # (n, width, 6)
+        lo = [(bx[:, :, k, None] - o[a:b, None, k]) * inv[a:b, None, k]
+              for k in range(3)]
+        hi = [(bx[:, :, 3 + k, None] - o[a:b, None, k]) * inv[a:b, None, k]
+              for k in range(3)]
+        tmin = torch.maximum(torch.maximum(torch.minimum(lo[0], hi[0]),
+                                           torch.minimum(lo[1], hi[1])),
+                             torch.minimum(lo[2], hi[2]))
+        tmax = torch.minimum(torch.minimum(torch.maximum(lo[0], hi[0]),
+                                           torch.maximum(lo[1], hi[1])),
+                             torch.maximum(lo[2], hi[2]))
+        need = ((tmin <= tmax) & (tmax >= 0) & (tmin <= t_final[a:b, None])
+                & live[a:b, None] & ok[:, :, None])     # (n, width, P)
+        per_cluster = need.sum(dim=2)
+        tests += int((per_cluster * real[ids]).sum())
+        touched[ids[per_cluster > 0]] = True
+        del lo, hi, tmin, tmax, need
+    n_touched = int(touched[:K].sum())
+    nbytes = (sl.rays.numel() * 4 + Tl * 4 + int(sl.counts.sum()) * 8
+              + n_touched * ((12 + 1) * C * 4 + 6 * 4) + Tl * P * 8)
+    return tests, n_touched, nbytes

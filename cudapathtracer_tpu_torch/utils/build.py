@@ -5,7 +5,9 @@ flags) and of its sources' and included headers' bytes, so a change to any of th
 library instead of reusing a stale one. The compiler writes to a private
 temporary name that is then renamed into place, so processes that build at
 the same time never load a half-written file. A failed build raises with the
-compiler's output: nothing falls back.
+compiler's output: nothing falls back. A build that succeeds leaves the
+compiler's output in ``BUILD_LOG`` under the library's name (for nvcc's
+``-Xptxas -v``: each kernel's registers and spills).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import subprocess
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO_DIR = os.path.dirname(PACKAGE_DIR)
 BUILD_DIR = os.path.join(REPO_DIR, "build")
+BUILD_LOG: dict[str, str] = {}
 
 
 def library_path(name: str, sources, compile_cmd, headers=()) -> str:
@@ -48,5 +51,6 @@ def build_and_load(name: str, sources, compile_cmd,
             raise RuntimeError(
                 f"building {name} failed ({' '.join(cmd)}):\n"
                 f"{proc.stdout}{proc.stderr}")
+        BUILD_LOG[name] = proc.stdout + proc.stderr
         os.replace(tmp, out)
     return ctypes.CDLL(out)

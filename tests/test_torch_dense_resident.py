@@ -14,10 +14,11 @@ tests/test_torch_dense_resident.py``."""
 import numpy as np
 import pytest
 import torch
-from torch_fold_cases import jax_scene, packet_data, shortlists
+from torch_fold_cases import colonnade_case, jax_scene, packet_data, shortlists
 
 from cudapathtracer_tpu_torch.models import procedural as tproc
 from cudapathtracer_tpu_torch.ops.kernels import dense_resident as tdr
+from cudapathtracer_tpu_torch.ops.kernels.work import needed_work
 from cudapathtracer_tpu_torch.render import renderer as tren
 
 
@@ -85,6 +86,10 @@ def test_wrapper_checks_inputs(scene):
     with pytest.raises(ValueError):
         tdr.dense_intersect_resident(sl.ids.long(), sl.counts, sl.entries,
                                      sl.rays, *scene["pack"])
+    with pytest.raises(ValueError, match="counts_out"):
+        tdr.dense_intersect_resident(
+            sl.ids, sl.counts, sl.entries, sl.rays, *scene["pack"],
+            counts_out=torch.zeros((sl.ids.shape[0], 2), dtype=torch.int64))
 
 
 @pytest.mark.cuda
@@ -107,3 +112,24 @@ def test_cuda_kernel_matches_plain(kind):
     pt, ptri = tdr.dense_intersect_resident_plain(*args)
     np.testing.assert_array_equal(tri.cpu().numpy(), ptri.cpu().numpy())
     np.testing.assert_array_equal(t.cpu().numpy(), pt.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster_size", [128, 1024])
+def test_cuda_counting_instance(cluster_size):
+    """On a card: K1's counting instance returns the timed instance's hits,
+    folds at most the listed slots and issues at least the tests the rays
+    need, in whole warps of C tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
+    sl, pack, num_tris = colonnade_case(cluster_size, torch.device("cuda"))
+    args = (sl.ids, sl.counts, sl.entries, sl.rays, *pack)
+    t, tri = tdr.dense_intersect_resident(*args)
+    counts = torch.empty((sl.ids.shape[0], 2), dtype=torch.int64,
+                         device="cuda")
+    tc, tric = tdr.dense_intersect_resident(*args, counts_out=counts)
+    torch.cuda.synchronize()
+    assert torch.equal(t, tc) and torch.equal(tri, tric)
+    assert bool((counts[:, 0] <= sl.counts).all())
+    assert bool((counts[:, 1] % (32 * cluster_size) == 0).all())
+    assert needed_work(sl, t, pack, num_tris)[0] <= int(counts[:, 1].sum())

@@ -18,16 +18,13 @@ tests/test_torch_dense_stream.py``."""
 import numpy as np
 import pytest
 import torch
-from torch_fold_cases import jax_scene, packet_data, rays, shortlists, tv
+from torch_fold_cases import colonnade_case, jax_scene, rays, shortlists, tv
 
-import cudapathtracer_tpu_torch as T
-from cudapathtracer_tpu_torch.models import procedural as tproc
 from cudapathtracer_tpu_torch.ops import packets as tpk
 from cudapathtracer_tpu_torch.ops import traversal as ttrav
 from cudapathtracer_tpu_torch.ops.kernels import dense as tk2
 from cudapathtracer_tpu_torch.ops.kernels import dense_resident as tk1
-from cudapathtracer_tpu_torch.render import renderer as tren
-from cudapathtracer_tpu_torch.render.camera import camera_rays
+from cudapathtracer_tpu_torch.ops.kernels.work import needed_work
 
 
 @pytest.fixture(scope="module")
@@ -70,6 +67,9 @@ def test_wrapper_takes_plain_version_on_cpu(scene):
         tk2.dense_intersect(*(a.to("meta") for a in args))
     with pytest.raises(ValueError):
         tk2.dense_intersect(sl.ids.long(), *args[1:])
+    with pytest.raises(ValueError, match="counts_out"):
+        tk2.dense_intersect(*args, counts_out=torch.zeros(
+            (sl.ids.shape[0], 2), dtype=torch.int64))
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -108,24 +108,12 @@ def test_trace_packets_stream_route(scene, monkeypatch, masked):
 @pytest.mark.parametrize("cluster_size", [128, 512, 1024])
 def test_cuda_kernel_matches_plain_and_k1(cluster_size):
     """On a card: K2 equals its plain version and K1 bit for bit, at
-    cluster widths of one to four 256-triangle chunks, and the wrapper
-    counts the launch."""
+    cluster widths of one to eight rounds of its 128 threads, and the
+    wrapper counts the launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
-    dev = torch.device("cuda")
-    ts = tproc.to_scene(tproc.colonnade(subdiv=3), "cpu")
-    tpd = packet_data(
-        tren.build_bvh_for_scene(ts, 4, cluster_size=cluster_size), ts)
-    cam = T.make_camera(pos=(0.0, 2.0, 3.4), width=32, height=32,
-                        focal_length=2.0, device="cpu")
-    o, d = camera_rays(cam, torch.arange(32 * 32), None, lens=False)
-    mask = torch.arange(32 * 32) % 7 != 0
-    perm = tpk.sort_rays(o, d, mask, tpd)
-    sl = tpk.build_shortlists(o.map(lambda c: c[perm]),
-                              d.map(lambda c: c[perm]), mask[perm], tpd,
-                              128, 4095)
-    args = [a.to(dev) for a in (sl.ids, sl.counts, sl.entries, sl.rays,
-                                *tk1.pack_clusters(tpd))]
+    sl, pack, _ = colonnade_case(cluster_size, torch.device("cuda"))
+    args = (sl.ids, sl.counts, sl.entries, sl.rays, *pack)
     n = tk2.dense_intersect.launches
     t, tri = tk2.dense_intersect(*args)
     torch.cuda.synchronize()
@@ -135,3 +123,27 @@ def test_cuda_kernel_matches_plain_and_k1(cluster_size):
         np.testing.assert_array_equal(tri.cpu().numpy(), want[1].cpu().numpy())
         np.testing.assert_array_equal(t.cpu().numpy(), want[0].cpu().numpy())
     assert (tri >= 0).sum() > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster_size", [128, 512, 1024])
+def test_cuda_counting_instance(cluster_size):
+    """On a card: K2's counting instance returns the timed instance's hits,
+    folds exactly K1's slots on every tile, and issues at least the tests
+    the rays need and at most K1's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
+    sl, pack, num_tris = colonnade_case(cluster_size, torch.device("cuda"))
+    args = (sl.ids, sl.counts, sl.entries, sl.rays, *pack)
+    t, tri = tk2.dense_intersect(*args)
+    c2 = torch.empty((sl.ids.shape[0], 2), dtype=torch.int64, device="cuda")
+    c1 = torch.empty_like(c2)
+    t2, tri2 = tk2.dense_intersect(*args, counts_out=c2)
+    tk1.dense_intersect_resident(*args, counts_out=c1)
+    torch.cuda.synchronize()
+    assert torch.equal(t, t2) and torch.equal(tri, tri2)
+    assert torch.equal(c2[:, 0], c1[:, 0])
+    assert bool((c2[:, 0] <= sl.counts).all())
+    needed = needed_work(sl, t, pack, num_tris)[0]
+    assert needed > 0
+    assert needed <= int(c2[:, 1].sum()) <= int(c1[:, 1].sum())

@@ -22,7 +22,8 @@ tests/test_torch_dense_super.py``."""
 import numpy as np
 import pytest
 import torch
-from torch_fold_cases import jax_scene, packet_data, rays, shortlists, tv
+from torch_fold_cases import (colonnade_case, jax_scene, packet_data, rays,
+                              shortlists, tv)
 
 import cudapathtracer_tpu_torch as T
 from cudapathtracer_tpu_torch.models import procedural as tproc
@@ -30,6 +31,7 @@ from cudapathtracer_tpu_torch.ops import packets as tpk
 from cudapathtracer_tpu_torch.ops import traversal as ttrav
 from cudapathtracer_tpu_torch.ops.kernels import dense_resident as tk1
 from cudapathtracer_tpu_torch.ops.kernels import dense_super as tk3
+from cudapathtracer_tpu_torch.ops.kernels.work import needed_work
 from cudapathtracer_tpu_torch.render import renderer as tren
 
 F = 2
@@ -108,6 +110,29 @@ def test_wrapper_takes_plain_version_on_cpu(scene):
         tk3.dense_intersect_super(*(a.to("meta") for a in args), F)
     with pytest.raises(ValueError):
         tk3.dense_intersect_super(*args, 0)
+    with pytest.raises(ValueError, match="counts_out"):
+        tk3.dense_intersect_super(*args, F, counts_out=torch.zeros(
+            (sl.ids.shape[0], 2), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("kind", ["camera", "random"])
+def test_needed_work_counts_members(scene, kind):
+    """The tests a super shortlist needs are those of its expansion into
+    K1's member shortlist, and no more than the plain fold's ungated tests
+    of the live rays."""
+    sl = _shortlists(scene["tpd"], kind, True)
+    pack = scene["pack"]
+    t, _ = tk3.dense_intersect_super_plain(sl.ids, sl.counts, sl.entries,
+                                           sl.rays, *pack, F)
+    num_tris = scene["ts"].num_tris
+    tests, touched, _ = needed_work(sl, t, pack, num_tris, F)
+    m_ids, m_counts, m_entries = tk3.expand_supers(
+        sl.ids, sl.counts, sl.entries, F, pack[0].shape[0] - 1)
+    flat = type(sl)(m_ids, m_counts, m_entries, sl.rays, sl.U)
+    assert (tests, touched) == needed_work(flat, t, pack, num_tris)[:2]
+    live = (sl.rays[:, 6] > 0.5).sum(dim=1)
+    C = pack[0].shape[2]
+    assert 0 < tests <= int((m_counts * live).sum()) * C
 
 
 @pytest.mark.parametrize("super_list", [255, 1])
@@ -179,3 +204,30 @@ def test_cuda_kernel_matches_plain(kind):
     pt, ptri = tk3.dense_intersect_super_plain(*args, F)
     np.testing.assert_array_equal(tri.cpu().numpy(), ptri.cpu().numpy())
     np.testing.assert_array_equal(t.cpu().numpy(), pt.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster_size", [128, 512, 1024])
+def test_cuda_kernel_at_cluster_widths(cluster_size):
+    """On a card, at F = 8 on colonnade subdiv 3: K3 equals its plain
+    version bit for bit at cluster widths of one to eight rounds of its 128
+    threads; its counting instance returns the same hits, folds at most the
+    listed members and issues at least the tests the rays need."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
+    f = 8
+    sl, pack, num_tris = colonnade_case(cluster_size, torch.device("cuda"),
+                                        super_factor=f)
+    args = (sl.ids, sl.counts, sl.entries, sl.rays, *pack)
+    t, tri = tk3.dense_intersect_super(*args, f)
+    counts = torch.empty((sl.ids.shape[0], 2), dtype=torch.int64,
+                         device="cuda")
+    tc, tric = tk3.dense_intersect_super(*args, f, counts_out=counts)
+    pt, ptri = tk3.dense_intersect_super_plain(*args, f)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(tri.cpu().numpy(), ptri.cpu().numpy())
+    np.testing.assert_array_equal(t.cpu().numpy(), pt.cpu().numpy())
+    assert torch.equal(t, tc) and torch.equal(tri, tric)
+    assert bool((counts[:, 0] <= sl.counts * f).all())
+    assert needed_work(sl, t, pack, num_tris, f)[0] <= int(counts[:, 1].sum())
+    assert (tri >= 0).sum() > 100

@@ -127,6 +127,21 @@ def test_build_bvh_for_scene_arrays_equal(name, kw, cluster):
                                       getattr(ta.fine, f).numpy(), err_msg=f)
 
 
+def test_native_builder_source_is_the_ports_own_copy():
+    """The port compiles its own copy of the BVH builder, byte for byte the
+    JAX package's file; nothing it builds lies outside its package."""
+    import os
+
+    from cudapathtracer_tpu_torch.accel import native as tnative
+
+    src = os.path.realpath(tnative.SOURCE)
+    assert src.startswith(os.path.realpath(tbuild.PACKAGE_DIR) + os.sep)
+    ref = os.path.join(os.path.dirname(J.__file__), "native",
+                       "bvh_builder.cpp")
+    with open(src, "rb") as a, open(ref, "rb") as b:
+        assert a.read() == b.read()
+
+
 def test_library_name_follows_command_and_sources(tmp_path):
     """A native library is rebuilt when its flags or its sources change,
     not only when a source is newer than the built file."""

@@ -16,6 +16,7 @@ from cudapathtracer_tpu_torch.ops import traversal as ttrav
 from cudapathtracer_tpu_torch.ops.kernels import dense_resident as tk1
 from cudapathtracer_tpu_torch.ops.vecmath import Vec3 as TVec3
 from cudapathtracer_tpu_torch.render.camera import camera_rays
+from cudapathtracer_tpu_torch.render.renderer import build_bvh_for_scene
 
 
 def tv(v):
@@ -54,6 +55,26 @@ def shortlists(tpd, kind, sort, max_clusters=16, **kw):
         o, d, mask = o.map(lambda c: c[perm]), d.map(lambda c: c[perm]), \
             mask[perm]
     return tpk.build_shortlists(o, d, mask, tpd, 64, max_clusters, **kw)
+
+
+def colonnade_case(cluster_size, dev, super_factor=None):
+    """32^2 sorted camera rays (every 7th masked) of colonnade subdiv 3 at
+    cluster width ``cluster_size``, tiled by 128: (shortlists, pack) on
+    ``dev``, in super units with ``super_factor``, and the triangle count."""
+    ts = tproc.to_scene(tproc.colonnade(subdiv=3), "cpu")
+    tpd = packet_data(
+        build_bvh_for_scene(ts, 4, cluster_size=cluster_size), ts)
+    cam = T.make_camera(pos=(0.0, 2.0, 3.4), width=32, height=32,
+                        focal_length=2.0, device="cpu")
+    o, d = camera_rays(cam, torch.arange(32 * 32), None, lens=False)
+    mask = torch.arange(32 * 32) % 7 != 0
+    perm = tpk.sort_rays(o, d, mask, tpd)
+    sl = tpk.build_shortlists(o.map(lambda c: c[perm]),
+                              d.map(lambda c: c[perm]), mask[perm], tpd,
+                              128, 4095, super_factor=super_factor)
+    sl = type(sl)(*(a.to(dev) for a in sl))
+    pack = tuple(a.to(dev) for a in tk1.pack_clusters(tpd))
+    return sl, pack, ts.num_tris
 
 
 def jax_scene(subdiv):
