@@ -1,34 +1,40 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-Drives the port's three render paths (PT+NEE through the packet engine and
+Drives the port's five render paths (PT+NEE through the packet engine and
 its CUDA kernels K1, K2 and K3) at the JAX bench's sizes and checks them:
 
 1. device: a CUDA card is required; its name and power limit are printed;
 2. build: K1, K2, K3 (nvcc, sm_90a) and the native BVH builder, all
    started together, timed; each kernel's registers and spills as ptxas
    reports them;
-3. K1 against its plain version at the headline shapes (the primary batch
-   and a sorted bounce batch of a real pt_nee sample): differing ids, the
-   largest relative and absolute t gaps, both times, and K1's bound; K1's
-   counting instance: slots folded, lane tests issued, waste;
-4. fallback: 64x64 primary rays of the headline scene through the packet
-   engine with a one-cluster shortlist, so the fine-BVH fallback runs on
-   the card; the hits must equal brute force's;
-5. golden: a 64x64, 16 spp Cornell render on the card against
+3. golden: a 64x64, 16 spp Cornell render on the card against
    tests/goldens/cornell_pt_nee_64_spp16.ppm, under the golden tests' rule;
-6. headline (resident route, K1): colonnade subdiv 3 (20,884 triangles),
-   1024x1024, 3 bounces: one warm-up window, then HEADLINE_WINDOWS timed
-   windows of 4 spp each. The rate is that of all timed windows together;
-7. stream route (K2): colonnade subdiv 6 (1,311,124 triangles, adaptive
-   C = 1024, flat cull). K2 against its plain version on SAMPLE_TILES tiles
-   spread over the primary and a sorted bounce batch, K2 against K1 bit for
-   bit on the full batches with both timed in turns (K1, K2, K2, K1), both
-   counting instances (K2 must fold exactly K1's slots), one sample's trace
-   calls, and PATH_WINDOWS timed 1024^2 windows of PATH_SPP spp after a
-   warm-up;
-8. super route (K3): colonnade subdiv 5 (328,084 triangles), C = 256,
-   two_level_cull="super", super_factor 8, super_list 255: the same steps,
-   with K1 on the flat shortlists of the same rays beside K3.
+4. headline (resident route, K1): colonnade subdiv 3 (20,884 triangles,
+   adaptive C = 256, P = 256). On the primary batch and a sorted bounce
+   batch of a real pt_nee sample: K1 against its plain version on the
+   full batch; K1 against K2 on the same shortlists, bit for bit, both
+   timed in turns (K2, K1, K1, K2); both counting instances (waste,
+   fold_fraction, the phase spans); K1's clusters folded against a plain
+   count of its schedule (blocks of 128 rays) on SAMPLE_TILES sampled
+   tiles; the bound.
+   Then the fine-BVH fallback (64x64 primary rays with a one-cluster
+   shortlist, so the fallback runs on the card; hits equal to brute
+   force's), one sample's trace calls, and HEADLINE_WINDOWS timed 1024^2
+   windows of HEADLINE_SPP spp after a warm-up;
+5. resident_82k (K1): colonnade subdiv 4 (82,324 triangles, adaptive
+   C = 512, P = 256): the same checks, K1 against its plain version on
+   SAMPLE_TILES sampled tiles, one sample's trace calls and PATH_WINDOWS
+   windows of PATH_SPP spp;
+6. resident_wide (K1): colonnade subdiv 5 (328,084 triangles) at its
+   default adaptive C = 1024, P = 128: the same;
+7. stream (K2): colonnade subdiv 6 (1,311,124 triangles, adaptive C = 1024,
+   flat cull past the resident budget): K2 against its plain version on
+   sampled tiles, K2 against K1 bit for bit on the full batches, timed in
+   turns (K1, K2, K2, K1), both counting instances, K2's clusters folded
+   against a plain count of its block schedule, the windows;
+8. super (K3): colonnade subdiv 5, C = 256, two_level_cull="super",
+   super_factor 8, super_list 255: the same steps, with K1 on the flat
+   shortlists of the same rays beside K3.
 
 Each render path runs with every kernel's launch count and every plain
 version's call count set to 0 just before its timed windows and read just
@@ -36,13 +42,16 @@ after; the path's kernel must have launched and nothing else may have run.
 A kernel's bound is the larger of the bytes its inputs need over the card's
 memory rate and the float32 operations of the ray-triangle tests they need
 over its float32 rate (``ops/kernels/work.py:needed_work``). A kernel's
-counting instance gives the lane tests it issued (a lane test is one test
-body run by one lane, its result used or not); waste is issued over needed,
-and fold_fraction is slots (K3: members) folded over slots listed. Counting
+counting instance gives the clusters it folded (once per group of rays that
+folds one: K1's blocks of 128 rays, K2's block per tile, K3's members),
+the lane tests it issued (a lane test is one test body run by one lane, its
+result used or not) and the clock cycles of each phase of its fold; waste
+is issued over needed,
+and fold_fraction is folded over (group, slot) pairs listed. Counting
 launches are not timed and are not the path's. Each phase prints lines of
-its own;
-any failure raises. The line before the last is a JSON summary of the
-kernels, the last line the device record.
+its own; any failure raises. The line before the last is a JSON summary of
+the kernels (one K1 entry per resident path, with the bounce batch's
+numbers), the last line the device record.
 
 Run: python3 chip_smoke.py
 """
@@ -154,22 +163,41 @@ def in_turns(fa, fb, reps):
     return (a1, cuda_ms(fa, reps)), (b1, b2)
 
 
+def count_line(counts, listed, needed):
+    """A counting instance's per-tile counts (Tl, COUNT_COLS) as one line:
+    clusters folded (counted once per group of rays that folds them: the
+    block, a warp, or per member) against the (group, slot) pairs listed,
+    lane tests issued against the tests needed (waste), and each phase's
+    share of the fold's clock cycles (``dense_resident.PHASES``) with their
+    mean per tile, summed over the tile's warps. -> (line, tests issued)."""
+    from cudapathtracer_tpu_torch.ops.kernels.dense_resident import PHASES
+
+    tot = counts.sum(dim=0).tolist()
+    folded, issued, spans = tot[0], tot[1], tot[2:]
+    cycles = max(sum(spans), 1)
+    return (f"folded={folded} listed={listed} "
+            f"fold_fraction={folded / max(listed, 1):.4f} "
+            f"lane_tests_issued={issued} tests_needed={needed} "
+            f"waste={issued / max(needed, 1):.3f} cycles_per_tile="
+            f"{cycles / max(counts.shape[0], 1):.0f} "
+            + " ".join(f"{p}={v / cycles:.3f}" for p, v in zip(PHASES, spans)),
+            issued)
+
+
 def fold_counts(label, name, fn, args, want, listed, needed):
     """Run ``fn``'s counting instance on ``args`` and print its counts; its
     hits must equal the timed instance's ``want``. -> (per-tile counts
-    (Tl, 2): slots folded, lane tests issued; total issued)."""
-    counts = torch.empty((args[0].shape[0], 2), dtype=torch.int64,
+    (Tl, COUNT_COLS), total lane tests issued)."""
+    from cudapathtracer_tpu_torch.ops.kernels.dense_resident import COUNT_COLS
+
+    counts = torch.empty((args[0].shape[0], COUNT_COLS), dtype=torch.int64,
                          device=args[0].device)
     out = fn(*args, counts_out=counts)
     if not (torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])):
         raise AssertionError(f"{label}: {name}'s counting instance differs "
                              "from its timed instance")
-    folded = int(counts[:, 0].sum())
-    issued = int(counts[:, 1].sum())
-    print(f"{label}: {name} slots_folded={folded} slots_listed={listed} "
-          f"fold_fraction={folded / max(listed, 1):.4f} "
-          f"lane_tests_issued={issued} tests_needed={needed} "
-          f"waste={issued / max(needed, 1):.3f}")
+    line, issued = count_line(counts, listed, needed)
+    print(f"{label}: {name} {line}")
     return counts, issued
 
 
@@ -290,15 +318,15 @@ def render_windows(label, kernels, expect, run, cfg, spp, windows):
     return launches[expect]
 
 
-def kernel_entry(name, source, replaces, launches, max_abs, ms, plain_ms,
-                 bnd, tiles, plain_tiles, issued, needed):
+def kernel_entry(name, source, replaces, launches, res):
     return {"name": name, "route": "cuda",
             "source": f"cudapathtracer_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches,
-            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
-            "tiles": tiles, "plain_tiles": plain_tiles,
-            "tests_issued": issued, "tests_needed": needed}
+            "max_abs_err": res["max_abs"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound"][0],
+            "bound_by": res["bound"][1], "library_ms": None,
+            "tiles": res["tiles"], "plain_tiles": res["plain_tiles"],
+            "tests_issued": res["issued"], "tests_needed": res["needed"]}
 
 
 def main():
@@ -359,6 +387,16 @@ def main():
 
     base_key = prng_key(1234, dev)
 
+    # ---- 3. golden on the card ---------------------------------------------
+    gcfg = cpt.RenderConfig(width=64, height=64, spp=16,
+                            integrator="pt_nee", samples_per_call=16)
+    gst = cpt.render(procedural.to_scene(procedural.cornell_box(), dev),
+                     cpt.make_camera(width=64, height=64, device=dev), gcfg,
+                     seed=1234, device=dev)
+    frac = check_golden(cpt.finalize_image(gst, gcfg), GOLDEN)
+    print(f"golden: cornell_pt_nee_64_spp16 channels_off_by_more_than_2="
+          f"{frac:.4%} (limit 0.5%)")
+
     def setup(label, subdiv, spp, **cfg_kw):
         size = HEADLINE_SIZE
         scene = procedural.to_scene(procedural.colonnade(subdiv=subdiv), dev)
@@ -389,174 +427,171 @@ def main():
 
         return scene, cfg, bvh, prep, cam, P, kern, trace_fn, window
 
-    # ---- headline scene ----------------------------------------------------
-    (scene, cfg, bvh, prep, cam, P, kern, trace_fn,
-     window) = setup("headline", 3, HEADLINE_SPP)
-    pd = prep.pdata
-    if kern != "resident":
-        raise AssertionError(f"headline route {kern}, expected resident")
+    def schedule_check(label, name, fn, part, pack, group):
+        """The counting instance's clusters folded on the sampled tiles
+        against a plain count of the kernel's schedule (groups of ``group``
+        rays), tile by tile."""
+        args = (part.ids, part.counts, part.entries, part.rays, *pack)
+        counts = torch.empty((part.ids.shape[0], k1.COUNT_COLS),
+                             dtype=torch.int64, device=dev)
+        fn(*args, counts_out=counts)
+        want = k1.fold_schedule(*args, group)[2]
+        same = torch.equal(counts[:, 0], want)
+        print(f"{label}: {name} clusters_folded={int(counts[:, 0].sum())} "
+              f"plain_schedule={int(want.sum())} (groups of {group} rays, "
+              f"{part.ids.shape[0]} sampled tiles) equal_per_tile={same}")
+        if not same:
+            raise AssertionError(f"{label}: {name} did not fold what its "
+                                 "schedule folds")
 
-    # ---- 3. K1 vs plain at the headline shapes -----------------------------
-    batches = record_batches(scene, trace_fn, cam, cfg, base_key)
-    max_abs = 0.0
-    for name, batch in batches.items():
-        sl = sorted_shortlists(batch, pd, P, cfg)
-        args = (sl.ids, sl.counts, sl.entries, sl.rays, *prep.resident_pack)
-        got = k1.dense_intersect_resident(*args)
-        k1_ms = cuda_ms(lambda: k1.dense_intersect_resident(*args), 5)
-        want, k1_plain_ms = host_ms(
-            lambda: k1.dense_intersect_resident_plain(*args))
-        _, gap = agreement(f"kernel[{name}] k1 vs plain", got, want, sl.rays)
-        max_abs = max(max_abs, gap)
-        tests, touched, nbytes = needed_work(sl, got[0], prep.resident_pack,
-                                             scene.num_tris)
-        k1_bound = bound(tests, nbytes)
-        k1_tiles = sl.ids.shape[0]
-        print(f"kernel[{name}]: tiles={k1_tiles} slots={sl.ids.shape[1]} "
-              f"mean_count={float(sl.counts.float().mean()):.2f} "
-              f"k1_ms={k1_ms:.4f} plain_ms={k1_plain_ms:.1f} tests={tests} "
-              f"clusters_touched={touched} bytes={nbytes} "
-              f"bound_ms={k1_bound[0]:.4f} bound_by={k1_bound[1]}")
-        _, k1_issued = fold_counts(f"fold[{name}]", "k1",
-                                   k1.dense_intersect_resident, args, got,
-                                   int(sl.counts.sum()), tests)
-        k1_needed = tests
-    k1_max_abs = max_abs      # the JSON line keeps the bounce batch's times
-
-    # ---- 4. fine-BVH fallback on the card ----------------------------------
-    fs = FALLBACK_SIZE
-    fidx = torch.arange(fs * fs, dtype=torch.int64, device=dev)
-    fcam = cpt.make_camera(pos=(0.0, 2.0, 3.4), width=fs, height=fs,
-                           focal_length=2.0, device=dev)
-    fo, fd = camera_rays(fcam, fidx, pixel_keys(sample_key(base_key, 0),
-                                                fidx), lens=False)
-    fmask = torch.ones(fs * fs, dtype=torch.bool, device=dev)
-    hit = packets.trace_packets(
-        fo, fd, pd, fine_td=traversal.make_trace_data(scene, bvh.fine),
-        mask=fmask, tile_size=P, max_clusters=1,
-        resident_pack=prep.resident_pack)
-    brute = traversal.trace_bruteforce(fo, fd, scene)
-    # unsorted, so the tiles are those of build_shortlists in ray order; a
-    # ray took the fallback exactly when its final t is not below U
-    u = packets.build_shortlists(fo, fd, fmask, pd, P, 1).U
-    n_fb = int((hit.t >= u.repeat_interleave(P)[:fs * fs]).sum())
-    id_bad = int((hit.tri != brute.tri).sum())
-    t_bad = int((hit.t != brute.t).sum())
-    print(f"fallback: rays={fs * fs} max_clusters=1 fallback_rays={n_fb} "
-          f"id_mismatches={id_bad} t_mismatches={t_bad}")
-    if n_fb == 0 or id_bad or t_bad:
-        raise AssertionError("the fallback did not run, or its hits differ "
-                             "from brute force")
-
-    # ---- 5. golden on the card ---------------------------------------------
-    gcfg = cpt.RenderConfig(width=64, height=64, spp=16,
-                            integrator="pt_nee", samples_per_call=16)
-    gst = cpt.render(procedural.to_scene(procedural.cornell_box(), dev),
-                     cpt.make_camera(width=64, height=64, device=dev), gcfg,
-                     seed=1234, device=dev)
-    frac = check_golden(cpt.finalize_image(gst, gcfg), GOLDEN)
-    print(f"golden: cornell_pt_nee_64_spp16 channels_off_by_more_than_2="
-          f"{frac:.4%} (limit 0.5%)")
-
-    # ---- 6. headline -------------------------------------------------------
-    k1_launches = render_windows("headline", kernels, "k1", window, cfg,
-                                 HEADLINE_SPP, HEADLINE_WINDOWS)
-    entries = [kernel_entry(
-        "dense_resident", "dense_resident.cu",
-        "cudapathtracer_tpu/ops/pallas/dense_resident.py:999", k1_launches,
-        k1_max_abs, k1_ms, k1_plain_ms, k1_bound, k1_tiles, k1_tiles,
-        k1_issued, k1_needed)]
-    del scene, bvh, prep, trace_fn, window, batches
-
-    # ---- 7. / 8. the stream and super routes -------------------------------
-    for label, subdiv, cfg_kw, want, name, source, replaces in (
-            ("stream", 6, {}, "k2", "dense", "dense.cu",
-             "cudapathtracer_tpu/ops/pallas/dense.py:343"),
-            ("super", 5, dict(cluster_size=256, two_level_cull="super",
-                              super_factor=8, super_list=255), "k3",
-             "dense_super", "dense_super.cu",
-             "cudapathtracer_tpu/ops/pallas/dense_resident.py:913")):
-        (scene, cfg, bvh, prep, cam, P, kern, trace_fn,
-         window) = setup(label, subdiv, PATH_SPP, **cfg_kw)
-        pd = prep.pdata
-        if kern != label:
-            raise AssertionError(f"{label} path took the {kern} route")
-        F = cfg.super_factor if label == "super" else None
+    def check_batch(label, want, batch, scene, prep, cfg, P, F, full_plain):
+        """One batch of one path: the kernel against its plain version, its
+        yardstick on the same rays timed in turns (K1: K2 on the same
+        shortlists, which must agree bit for bit; K2: K1, the same; K3: K1
+        on the flat shortlists), both counting instances, the schedule's
+        folds and the bound. -> the numbers of the kernel's JSON entry."""
         _, wrapper, plain = kernels[want]
+        other = "k2" if want == "k1" else "k1"
+        _, owrap, _ = kernels[other]
         extra = (F,) if F else ()
+        pd, pack = prep.pdata, prep.resident_pack
+        sl, sl_ms = host_ms(lambda: sorted_shortlists(batch, pd, P, cfg,
+                                                      super_factor=F))
+        args = (sl.ids, sl.counts, sl.entries, sl.rays, *pack)
+        got = wrapper(*args, *extra)
+        flat = sorted_shortlists(batch, pd, P, cfg) if F else sl
+        oargs = (flat.ids, flat.counts, flat.entries, flat.rays, *pack)
+        ref = owrap(*oargs)
+        (o_a, o_b), (ms_a, ms_b) = in_turns(
+            lambda: owrap(*oargs), lambda: wrapper(*args, *extra), 3)
+        ms, o_ms = (ms_a + ms_b) / 2, (o_a + o_b) / 2
+        same = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        print(f"kernel[{label}]: {want} vs {other} on all {sl.ids.shape[0]} "
+              f"tiles: bit_identical={same} "
+              f"differing_ids={int((got[1] != ref[1]).sum())} "
+              f"{want}_ms={ms:.4f} ({ms_a:.4f}, {ms_b:.4f}) "
+              f"{other}_ms={o_ms:.4f} ({o_a:.4f}, {o_b:.4f}; in turns "
+              f"{other}, {want}, {want}, {other}) "
+              f"{other}_over_{want}={o_ms / ms:.3f} ({other} on the "
+              f"{'flat' if F else 'same'} shortlists)")
+        # K1 and K2 fold one function on one input; K3 and K1 fold
+        # different lists, each exact against the plain fold
+        if not F and not same:
+            raise AssertionError(f"{label}: {want} and {other} differ")
+        part = sl if full_plain else sample_tiles(sl, SAMPLE_TILES)
+        pargs = (part.ids, part.counts, part.entries, part.rays, *pack)
+        want_p, plain_ms = host_ms(lambda: plain(*pargs, *extra))
+        _, gap = agreement(
+            f"kernel[{label}] {want} vs plain on {part.ids.shape[0]} "
+            f"{'' if full_plain else 'sampled '}tiles",
+            got if full_plain else wrapper(*pargs, *extra), want_p,
+            part.rays)
+        tests, touched, nbytes = needed_work(sl, got[0], pack,
+                                             scene.num_tris, F)
+        bnd = bound(tests, nbytes)
+        print(f"kernel[{label}]: tiles={sl.ids.shape[0]} "
+              f"slots={sl.ids.shape[1]} "
+              f"mean_count={float(sl.counts.float().mean()):.2f} "
+              f"{want}_ms={ms:.4f} plain_ms={plain_ms:.1f} (on "
+              f"{part.ids.shape[0]} tiles) sort_cull_topk_ms={sl_ms:.3f} "
+              f"tests={tests} clusters_touched={touched} bytes={nbytes} "
+              f"bound_ms={bnd[0]:.4f} bound_by={bnd[1]}")
+        # the counting instances; K1 counts a cluster once per block of up
+        # to 128 rays that folds it, K3 per member
+        k1_group = k1.k1_group(P)
+        groups = {"k1": P // k1_group, "k2": 1, "k3": F}
+        _, issued = fold_counts(
+            f"fold[{label}]", want,
+            lambda *a, **kw: wrapper(*a, *extra, **kw), args, got,
+            int(sl.counts.sum()) * groups[want], tests)
+        o_needed = (needed_work(flat, ref[0], pack, scene.num_tris)[0] if F
+                    else tests)
+        fold_counts(f"fold[{label}]", other, owrap, oargs, ref,
+                    int(flat.counts.sum()) * groups[other], o_needed)
+        if not F:
+            schedule_check(
+                f"fold[{label}]", want, wrapper,
+                sample_tiles(sl, SAMPLE_TILES) if full_plain else part,
+                pack, k1_group if want == "k1" else P)
+        return dict(ms=ms, plain_ms=plain_ms, bound=bnd, max_abs=gap,
+                    tiles=sl.ids.shape[0], plain_tiles=part.ids.shape[0],
+                    issued=issued, needed=tests)
+
+    # ---- 4.-8. the render paths --------------------------------------------
+    resident_src = "cudapathtracer_tpu/ops/pallas/dense_resident.py:999"
+    paths = (
+        # label, subdiv, RenderConfig knobs, route, kernel, spp, windows
+        ("headline", 3, {}, "resident", "k1", HEADLINE_SPP,
+         HEADLINE_WINDOWS),
+        ("resident_82k", 4, {}, "resident", "k1", PATH_SPP, PATH_WINDOWS),
+        ("resident_wide", 5, {}, "resident", "k1", PATH_SPP, PATH_WINDOWS),
+        ("stream", 6, {}, "stream", "k2", PATH_SPP, PATH_WINDOWS),
+        ("super", 5, dict(cluster_size=256, two_level_cull="super",
+                          super_factor=8, super_list=255), "super", "k3",
+         PATH_SPP, PATH_WINDOWS),
+    )
+    sources = {"k1": ("dense_resident", "dense_resident.cu", resident_src),
+               "k2": ("dense", "dense.cu",
+                      "cudapathtracer_tpu/ops/pallas/dense.py:343"),
+               "k3": ("dense_super", "dense_super.cu",
+                      "cudapathtracer_tpu/ops/pallas/dense_resident.py:913")}
+    entries = []
+    for label, subdiv, cfg_kw, route, want, spp, windows in paths:
+        (scene, cfg, bvh, prep, cam, P, kern, trace_fn,
+         window) = setup(label, subdiv, spp, **cfg_kw)
+        if kern != route:
+            raise AssertionError(f"{label} path took the {kern} route, "
+                                 f"expected {route}")
+        F = cfg.super_factor if route == "super" else None
         batches = record_batches(scene, trace_fn, cam, cfg, base_key)
-        max_abs = 0.0
+        res, gaps = {}, []
         for bname, batch in batches.items():
-            sl, sl_ms = host_ms(lambda: sorted_shortlists(
-                batch, pd, P, cfg, super_factor=F))
-            args = (sl.ids, sl.counts, sl.entries, sl.rays,
-                    *prep.resident_pack)
-            got = wrapper(*args, *extra)
-            # K1 beside it on the same rays: the same shortlists on the
-            # stream route, the flat ones on the super route
-            flat = sorted_shortlists(batch, pd, P, cfg) if F else sl
-            fargs = (flat.ids, flat.counts, flat.entries, flat.rays,
-                     *prep.resident_pack)
-            ref = k1.dense_intersect_resident(*fargs)
-            (k1_a, k1_b), (ms_a, ms_b) = in_turns(
-                lambda: k1.dense_intersect_resident(*fargs),
-                lambda: wrapper(*args, *extra), 3)
-            ms = (ms_a + ms_b) / 2
-            k1_full_ms = (k1_a + k1_b) / 2
-            same = (torch.equal(got[0], ref[0])
-                    and torch.equal(got[1], ref[1]))
-            n_diff = int((got[1] != ref[1]).sum())
-            print(f"kernel[{label}/{bname}]: {want} vs k1 on all "
-                  f"{sl.ids.shape[0]} tiles: bit_identical={same} "
-                  f"differing_ids={n_diff} {want}_ms={ms:.4f} "
-                  f"({ms_a:.4f}, {ms_b:.4f}) k1_ms={k1_full_ms:.4f} "
-                  f"({k1_a:.4f}, {k1_b:.4f}; in turns k1, {want}, {want}, "
-                  f"k1) k1_over_{want}={k1_full_ms / ms:.3f} (k1 on the "
-                  f"{'flat' if F else 'same'} shortlists)")
-            # K2 folds exactly K1's slots in K1's order; K3 and K1 fold
-            # different lists, each exact against the plain fold
-            if label == "stream" and not same:
-                raise AssertionError(f"{want} and K1 differ on {label}")
-            part = sample_tiles(sl, SAMPLE_TILES)
-            pargs = (part.ids, part.counts, part.entries, part.rays,
-                     *prep.resident_pack)
-            want_p, plain_ms = host_ms(lambda: plain(*pargs, *extra))
-            _, gap = agreement(
-                f"kernel[{label}/{bname}] {want} vs plain on "
-                f"{part.ids.shape[0]} sampled tiles",
-                wrapper(*pargs, *extra), want_p, part.rays)
-            max_abs = max(max_abs, gap)
-            tests, touched, nbytes = needed_work(
-                sl, got[0], prep.resident_pack, scene.num_tris, F)
-            bnd = bound(tests, nbytes)
-            print(f"kernel[{label}/{bname}]: tiles={sl.ids.shape[0]} "
-                  f"slots={sl.ids.shape[1]} "
-                  f"mean_count={float(sl.counts.float().mean()):.2f} "
-                  f"{want}_ms={ms:.4f} plain_ms={plain_ms:.1f} "
-                  f"(on {part.ids.shape[0]} tiles) sort_cull_topk_ms="
-                  f"{sl_ms:.3f} tests={tests} "
-                  f"clusters_touched={touched} bytes={nbytes} "
-                  f"bound_ms={bnd[0]:.4f} bound_by={bnd[1]}")
-            label_f = f"fold[{label}/{bname}]"
-            c_new, issued = fold_counts(
-                label_f, want, lambda *a, **kw: wrapper(*a, *extra, **kw),
-                args, got, int(sl.counts.sum()) * (F or 1), tests)
-            k1_needed = (needed_work(flat, ref[0], prep.resident_pack,
-                                     scene.num_tris)[0] if F else tests)
-            c_k1, _ = fold_counts(label_f, "k1", k1.dense_intersect_resident,
-                                  fargs, ref, int(flat.counts.sum()),
-                                  k1_needed)
-            # K2 folds K1's slots, tile by tile
-            if label == "stream" and not torch.equal(c_new[:, 0], c_k1[:, 0]):
-                raise AssertionError("k2 did not fold exactly K1's slots")
+            res = check_batch(f"{label}/{bname}", want, batch, scene, prep,
+                              cfg, P, F, full_plain=label == "headline")
+            gaps.append(res["max_abs"])
+        # the JSON line keeps the bounce batch's numbers and the largest gap
+        # to the plain version over both batches
+        res["max_abs"] = max(gaps)
+
+        if label == "headline":
+            # fine-BVH fallback: 64x64 primary rays through the packet
+            # engine with a one-cluster shortlist, so the fallback runs on
+            # the card; the hits must equal brute force's
+            pd, fs = prep.pdata, FALLBACK_SIZE
+            fidx = torch.arange(fs * fs, dtype=torch.int64, device=dev)
+            fcam = cpt.make_camera(pos=(0.0, 2.0, 3.4), width=fs, height=fs,
+                                   focal_length=2.0, device=dev)
+            fo, fd = camera_rays(fcam, fidx, pixel_keys(
+                sample_key(base_key, 0), fidx), lens=False)
+            fmask = torch.ones(fs * fs, dtype=torch.bool, device=dev)
+            hit = packets.trace_packets(
+                fo, fd, pd, fine_td=traversal.make_trace_data(scene,
+                                                              bvh.fine),
+                mask=fmask, tile_size=P, max_clusters=1,
+                resident_pack=prep.resident_pack)
+            brute = traversal.trace_bruteforce(fo, fd, scene)
+            # unsorted, so the tiles are those of build_shortlists in ray
+            # order; a ray took the fallback exactly when its final t is not
+            # below U
+            u = packets.build_shortlists(fo, fd, fmask, pd, P, 1).U
+            n_fb = int((hit.t >= u.repeat_interleave(P)[:fs * fs]).sum())
+            id_bad = int((hit.tri != brute.tri).sum())
+            t_bad = int((hit.t != brute.t).sum())
+            print(f"fallback: rays={fs * fs} max_clusters=1 "
+                  f"fallback_rays={n_fb} id_mismatches={id_bad} "
+                  f"t_mismatches={t_bad}")
+            if n_fb == 0 or id_bad or t_bad:
+                raise AssertionError("the fallback did not run, or its hits "
+                                     "differ from brute force")
+
         trace_breakdown(label, scene, trace_fn, cam, cfg, base_key)
-        launches = render_windows(label, kernels, want, window, cfg,
-                                  PATH_SPP, PATH_WINDOWS)
-        entries.append(kernel_entry(name, source, replaces, launches,
-                                    max_abs, ms, plain_ms, bnd,
-                                    sl.ids.shape[0], part.ids.shape[0],
-                                    issued, tests))
-        del scene, bvh, prep, trace_fn, window, batches, sl, flat, part
+        launches = render_windows(label, kernels, want, window, cfg, spp,
+                                  windows)
+        name, source, replaces = sources[want]
+        entries.append(kernel_entry(
+            f"{name}/{label}" if want == "k1" else name, source, replaces,
+            launches, res))
+        del scene, bvh, prep, trace_fn, window, batches
         torch.cuda.empty_cache()
 
     print(smi)

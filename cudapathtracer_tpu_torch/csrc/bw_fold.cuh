@@ -1,14 +1,13 @@
 // Device functions shared by the three dense cluster kernels (K1
 // dense_resident.cu, K2 dense.cu, K3 dense_super.cu): the ray's state, the
-// per-ray cluster box gate, the Baldwin-Weber test of one ray against one
-// triangle, and K1's synchronous staging of one cluster into shared memory
-// and its ray-stationary fold.
+// per-ray cluster box gate and the Baldwin-Weber test of one ray against
+// one triangle.
 //
 // Every kernel tests through bw_test, built with -fmad=false, so they round
 // alike: the test forms, with __fmaf_rn, exactly the fused multiply-adds
 // that XLA forms for the JAX package's formulas, the plain PyTorch version
 // (ops/kernels/dense_resident.py) emulates them exactly, and the compiler
-// fuses nothing else. K2 and K3 fold through gated_fold.cuh.
+// fuses nothing else. All three fold through gated_fold.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -72,39 +71,10 @@ __device__ __forceinline__ bool box_gate(const float* __restrict__ b,
   return r.live && tmin <= tmax && tmax >= 0.0f && tmin <= t;
 }
 
-// Copy cluster sid's 12 BW rows and C ids into shared memory, all threads
-// of the block together (the caller synchronises before reading).
-__device__ __forceinline__ void stage_cluster(
-    float* cl, int32_t* cl_id, const float* __restrict__ packed,
-    const int32_t* __restrict__ tri, int sid, int C, int lane, int P) {
-  const float* src = packed + static_cast<int64_t>(sid) * kRows * C;
-  for (int i = lane; i < kRows * C; i += P) cl[i] = src[i];
-  const int32_t* src_id = tri + static_cast<int64_t>(sid) * C;
-  for (int i = lane; i < C; i += P) cl_id[i] = src_id[i];
-}
-
 // One triangle's 12 Baldwin-Weber rows: n, v0, m1, m2.
 struct Tri {
   float nx, ny, nz, vx, vy, vz, ax, ay, az, bx, by, bz;
 };
-
-// Row k of triangle c is rows[k * ld + c].
-__device__ __forceinline__ Tri load_tri(const float* rows, int ld, int c) {
-  Tri q;
-  q.nx = rows[0 * ld + c];
-  q.ny = rows[1 * ld + c];
-  q.nz = rows[2 * ld + c];
-  q.vx = rows[3 * ld + c];
-  q.vy = rows[4 * ld + c];
-  q.vz = rows[5 * ld + c];
-  q.ax = rows[6 * ld + c];
-  q.ay = rows[7 * ld + c];
-  q.az = rows[8 * ld + c];
-  q.bx = rows[9 * ld + c];
-  q.by = rows[10 * ld + c];
-  q.bz = rows[11 * ld + c];
-  return q;
-}
 
 // The ray's hit distance on triangle q, or MAX_FLOAT where it misses.
 __device__ __forceinline__ float bw_test(const Tri& q, float ox, float oy,
@@ -128,24 +98,6 @@ __device__ __forceinline__ float bw_test(const Tri& q, float ox, float oy,
   const bool reject = parallel || bu < 0.0f || bv < 0.0f || bw < 0.0f
                       || tt <= 0.0f;
   return reject ? kMaxFloat : tt;
-}
-
-// K1's fold of n triangles into (t, best), one ray per thread: row k of
-// triangle c is cl[k * ld + c]. Keeps the lexicographic minimum of (t, id),
-// i.e. exact-t ties go to the lower triangle id.
-__device__ __forceinline__ void bw_fold(const float* cl,
-                                        const int32_t* cl_id, int ld, int n,
-                                        const Ray& r, float& t,
-                                        int32_t& best) {
-  for (int c = 0; c < n; ++c) {
-    const float ts = bw_test(load_tri(cl, ld, c), r.ox, r.oy, r.oz, r.dx,
-                             r.dy, r.dz);
-    const int32_t id = cl_id[c];
-    if (ts < t || (ts == t && id < best)) {
-      t = ts;
-      best = id;
-    }
-  }
 }
 
 }  // namespace bwfold

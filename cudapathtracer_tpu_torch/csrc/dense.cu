@@ -6,8 +6,7 @@
 // function of K1 (dense_resident.cu), for scenes whose cluster blocks the
 // TPU could not keep in VMEM and streamed from HBM through an 8-deep DMA
 // ring, gated before the fetch. Same inputs, same layout (pack_clusters),
-// same result as K1, bit for bit: the hits of every ray, and the order of
-// its folds.
+// same result as K1, bit for bit.
 //
 // What bounds it on an H100: at colonnade subdiv 6 (1,311,124 triangles,
 // C = 1024, P = 128) the pack is 92 MB, more than the 50 MB L2, and the
@@ -21,15 +20,16 @@
 //     only: 1.02x the tests needed, and 2 shared loads per test, not 13;
 //   * nothing is staged but the chunk's boxes: a block keeps 40 bytes per
 //     ray and 8 KB of shared memory, and at 64 registers a thread an SM
-//     holds 16 blocks of 128, which hide each other's loads from device
+//     holds 8 blocks of 128, which hide each other's loads from device
 //     memory. Within a block the next round's triangle is loaded before
 //     this round's tests.
-// On one H100 80GB HBM3 at a 700 W limit it takes 2.39 ms on the subdiv-6
-// bounce batch, where K1 takes 13.40 ms on the same shortlists and this
-// kernel took 13.73 before (18% of its operations bound), and 1.95 ms on the
-// primary batch (K1 2.85; chip_smoke.py, PERF.md). Its gates and exit votes
-// are K1's, taken with the t each ray has after the previous slot, so it
-// folds exactly K1's slots for exactly K1's rays.
+// On one H100 80GB HBM3 at a 700 W limit it takes 2.31-2.39 ms on the
+// subdiv-6 bounce batch, where the ray-stationary fold took 13.40 ms on the
+// same shortlists and this kernel took 13.73 before (18% of its operations
+// bound), and 1.93-1.95 ms on the primary batch (chip_smoke.py, PERF.md).
+// K1 now runs this kernel's code (gated_fold.cuh:gated_tile) in blocks of at
+// most 128 rays, so at P = 128 the two are one launch; both keep the plain
+// fold's result bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,7 +48,8 @@ __global__ void dense_stream_kernel(
     int M, int C, int K) {
   // a slot is one cluster: F = 1
   gfold::gated_tile<kCount>(ids, counts, entries, rays, packed, tri, boxes,
-                            t_out, tri_out, counts_out, M, C, 1, K);
+                            t_out, tri_out, counts_out, M, blockDim.x, C, 1,
+                            K);
 }
 
 }  // namespace

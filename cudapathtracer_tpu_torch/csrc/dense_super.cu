@@ -51,7 +51,8 @@ __global__ void dense_super_kernel(
     int32_t* __restrict__ tri_out, long long* __restrict__ counts_out,
     int M, int C, int F, int K) {
   gfold::gated_tile<kCount>(ids, counts, entries, rays, packed, tri, boxes,
-                            t_out, tri_out, counts_out, M, C, F, K);
+                            t_out, tri_out, counts_out, M, blockDim.x, C, F,
+                            K);
 }
 
 }  // namespace

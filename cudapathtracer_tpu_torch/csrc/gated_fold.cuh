@@ -1,26 +1,27 @@
-// The gated, triangle-stationary fold shared by K2 (dense.cu) and K3
-// (dense_super.cu): the closest Baldwin-Weber hit of every ray of a tile
-// over its entry-sorted shortlist, where a slot is a super of F clusters
-// consecutive in preorder (member sid = min(slot * F + j, K)); K2 is the
-// case F = 1.
+// The gated, triangle-stationary fold shared by the dense cluster kernels:
+// the closest Baldwin-Weber hit of every ray of a tile over its
+// entry-sorted shortlist. gated_tile is the code of all three kernels, K1
+// (dense_resident.cu), K2 (dense.cu) and K3 (dense_super.cu): a slot is a
+// super of F clusters consecutive in preorder (member sid =
+// min(slot * F + j, K)); K1 and K2 are the case F = 1. The whole block
+// votes, gates and folds each member together. K2 and K3 run a block per
+// tile; K1 runs blocks of at most 128 rays of a tile.
 //
-// Rays own the control flow, as in K1 (dense_resident.cu): thread i holds
-// ray i, takes the block's early-exit vote at every slot (t >= entry) and
-// gates each member's box against its own best t. What differs is who folds:
+// Rays own the control flow: thread i holds ray i, takes the exit vote at
+// every slot (t >= entry) and gates each member's box against its own best
+// t. What differs from a ray-stationary fold is who folds:
 //   * compaction: the rays that pass a member's gate are appended to a list
-//     in shared memory (ballot, one atomicAdd per warp, one barrier), each
-//     entry its o, d, t at the member's start and its index. A member no ray
-//     passes costs no fold;
+//     in shared memory (ballot), each entry its o, d, t at the member's start
+//     and its index. A member no ray passes costs no fold;
 //   * triangle-stationary fold: thread c takes triangle c of the member
 //     straight into registers (coalesced: the pack's rows are SoA, (K+1, 12,
 //     C)), then tests it against every listed ray, reading each ray with two
-//     16-byte broadcast loads from shared memory; after C / P rounds the
-//     member is done. Work per folded member is n_pass * C tests, not 32 * C
-//     per warp that holds one passing ray, and a test needs 2 shared loads,
-//     not 13. The next round's triangle is loaded before this round's tests
-//     (a register double buffer), and the first round's before the
-//     compaction barrier, so that a member with few passing rays does not
-//     wait a full memory latency per round;
+//     16-byte broadcast loads from shared memory; the threads stride over
+//     the C triangles in rounds. Work per folded member is n_pass * C tests,
+//     not 32 * C per warp that holds one passing ray, and a test needs 2
+//     shared loads, not 13. The next round's triangle is loaded before this
+//     round's tests (a register double buffer), and the first round's before
+//     the list is complete;
 //   * padding triangles (the sentinel row's id T and a zero normal) are
 //     skipped: their test always rejects, and T, the largest id, never wins
 //     a tie. Where a third of a cluster is padding (C = 256 at colonnade
@@ -28,41 +29,50 @@
 //     IEEE division's slow path in every test;
 //   * the closest hit is an exact 64-bit atomicMin in shared memory on each
 //     ray's key (fold_key): the key's signed order is the lexicographic
-//     order of (t, id), so the minimum is what K1's sequential
+//     order of (t, id), so the minimum is what a sequential
 //     ts < t || (ts == t && id < best) computes from (cap, -1), whatever
 //     order the tests run in. A thread reads the ray's t at the member's
 //     start and does the atomic only where its ts could win;
-//   * supers (F > 1): each ray gates all F members at the super's start, one
-//     block-wide OR of those masks names the members to visit, and a ray
-//     whose t fell since then (it folded a member) gates again before the
-//     next member. The gate is monotone in t, so every member is folded for
-//     exactly the rays whose gate passes at their current t, in member
-//     order: what member-by-member gating folds.
+//   * supers (F > 1): each ray gates all F members at the super's start,
+//     one block-wide OR of those masks names the members to visit, and a
+//     ray whose t fell since then (it folded a member) gates again before
+//     the next member. The gate is monotone in t, so every
+//     member is folded for exactly the rays whose gate passes at their
+//     current t, in member order: what member-by-member gating folds.
 // Occupancy: the wrappers build it with at most 64 registers a thread
-// (ops/kernels/dense_resident.py:GATED_FOLD_FLAGS), so an SM holds 2048
+// (ops/kernels/dense_resident.py:GATED_FOLD_FLAGS), so an SM holds 1024
 // threads; uncapped, K3 took 82 and fit two blocks of 256 on an SM, and ran
-// 1.3-1.7x slower (tools/tune_gated_fold.py, one H100 80GB HBM3, 700 W).
+// 1.3-1.7x slower, and K1 1.2-1.3x (tools/tune_gated_fold.py, one H100
+// 80GB HBM3, 700 W).
 //
 // Members are folded in order and gated with the t each ray has after the
-// previous one, so K2 folds exactly K1's slots for exactly K1's rays, and
-// keeps K1's result bit for bit.
+// previous one, so every ray folds exactly the clusters whose gate it passes
+// at its t, and the result is the plain fold's bit for bit. A block ends at
+// the first slot whose entry no live ray of it reaches.
 //
 // The member ids and boxes and the slots' entries are staged in shared
-// memory kChunk members at a time, so a slot's gates and exit vote wait on no
-// load from device memory (one dependent box load per slot, F per super,
-// would otherwise set the pace of a tile whose rays fold little).
-//
-// Barriers: one per slot (the exit vote, which also publishes the member
-// mask), one per visited member (the list), one per folded member (the
-// keys) and two per chunk. The list lengths and member masks rotate through
-// three words, so each word is reset by thread 0 while no thread can still
-// read or write it.
+// memory kChunk members at a time, so a slot's gates and exit vote wait on
+// no load from device memory. Barriers: one per slot (the exit vote,
+// which also publishes the member mask), one per visited member (the list),
+// one per folded member (the keys) and two per chunk. The list lengths and
+// member masks rotate through three words, so each word is reset by thread 0
+// while no thread can still read or write it. Thread c takes triangles c,
+// c + B, ... of a member, so with B = C the padding at a cluster's end falls
+// to whole warps that skip their tests and wait at the keys' barrier (46% of
+// the cycles at C = P = 256); blocks of 128 rays spread it over the rounds.
 //
 // Counting instance (kCount, for measurements only; the timed instance is
-// compiled without it): per tile, the members folded and the lane tests
-// issued, 32 * n_pass for every round of a warp that holds a triangle it
-// tests (a warp that runs n_pass tests issues 32 * n_pass, used or not),
-// into counts_out (Tl, 2), which the caller zeroes.
+// compiled without it): per tile, into counts_out (Tl, kCountCols), which
+// the caller zeroes:
+//   0: members folded, summed over the tile's blocks that fold each;
+//   1: lane tests issued, 32 * n_pass for every round of a warp that holds
+//      a triangle it tests (a warp that runs n_pass tests issues 32 *
+//      n_pass, used or not);
+//   2-6: clock64() cycles of each phase, summed over the tile's warps
+//      (lane 0 of each): the gates and exit votes (chunk staging included),
+//      the list (compaction up to its barrier), the wait for the member's
+//      first triangle after that barrier, the tests, and the barrier after
+//      them (the key merge).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -73,6 +83,34 @@
 namespace gfold {
 
 using bwfold::kRows;
+
+constexpr int kCountCols = 7;
+enum Phase { kGateVote, kList, kWait, kTests, kMerge, kPhases };
+
+// The counting instance's phase clocks: mark(p) adds the cycles since the
+// last mark to phase p. Compiled away where kOn is false.
+template <bool kOn>
+struct Spans {
+  long long acc[kPhases] = {};
+  long long last = 0;
+  __device__ __forceinline__ void start() {
+    if (kOn) last = clock64();
+  }
+  __device__ __forceinline__ void mark(int p) {
+    if (kOn) {
+      const long long now = clock64();
+      acc[p] += now - last;
+      last = now;
+    }
+  }
+  // lane 0 of each warp adds its warp's cycles to the tile's row
+  __device__ __forceinline__ void flush(long long* row, int wl) {
+    if (kOn && wl == 0)
+      for (int p = 0; p < kPhases; ++p)
+        atomicAdd(reinterpret_cast<unsigned long long*>(row + 2 + p),
+                  static_cast<unsigned long long>(acc[p]));
+  }
+};
 
 // (t, id) -> one 64-bit integer whose signed order is the lexicographic
 // order of (t, id). High word: t's bits, the low 31 flipped for negative t,
@@ -113,6 +151,16 @@ __device__ __forceinline__ bwfold::Tri load_tri_ldg(
   q.by = __ldg(rows + 10 * C + c);
   q.bz = __ldg(rows + 11 * C + c);
   return q;
+}
+
+// The counting instance's wait span ends here: a use of every field of q
+// (and of id) that the compiler cannot drop, so the thread waits until its
+// triangle's loads have landed. The store never happens (ids are >= 0).
+__device__ __forceinline__ void await_tri(const bwfold::Tri& q, int32_t id,
+                                          long long* sink) {
+  const float s = q.nx + q.ny + q.nz + q.vx + q.vy + q.vz + q.ax + q.ay
+                  + q.az + q.bx + q.by + q.bz;
+  if (id == INT32_MIN && __float_as_int(s) == 0x7fbfffff) *sink = -1;
 }
 
 // Members whose ids and boxes are staged in shared memory together, with
@@ -167,7 +215,22 @@ __device__ __forceinline__ long long fold_listed(
   return issued;
 }
 
-// One tile (blockIdx.x) of P = blockDim.x rays.
+// Which rays a block folds: tile blockIdx.x / (P / B) of P rays, its B =
+// blockDim.x rays from r0 = (blockIdx.x % (P / B)) * B on. K2 and K3 run a
+// block per tile (B = P); K1 may split a tile into blocks of B rays, each
+// with its own votes, gates and folds over the tile's whole shortlist.
+struct Part {
+  int64_t tile;
+  int r0;
+};
+
+__device__ __forceinline__ Part block_part(int P) {
+  const int subs = P / static_cast<int>(blockDim.x);
+  return {static_cast<int64_t>(blockIdx.x / subs),
+          static_cast<int>(blockIdx.x % subs) * static_cast<int>(blockDim.x)};
+}
+
+// One block of B = blockDim.x rays of a tile of P.
 template <bool kCount>
 __device__ __forceinline__ void gated_tile(
     const int32_t* __restrict__ ids,       // (Tl, M) shortlist slot ids
@@ -179,26 +242,29 @@ __device__ __forceinline__ void gated_tile(
     const float* __restrict__ boxes,       // (K+1, 6) lo.xyz, hi.xyz
     float* __restrict__ t_out,             // (Tl, P)
     int32_t* __restrict__ tri_out,         // (Tl, P)
-    long long* __restrict__ counts_out,    // (Tl, 2) or null
-    int M, int C, int F, int K) {
+    long long* __restrict__ counts_out,    // (Tl, kCountCols) or null
+    int M, int P, int C, int F, int K) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int P = blockDim.x;
+  const int B = blockDim.x;
   const int lane = threadIdx.x;
   const int wl = lane & 31;
-  const int64_t tile = blockIdx.x;
+  const Part part = block_part(P);
+  const int64_t tile = part.tile;
   const int G = chunk_slots(F);
-  long long* key = reinterpret_cast<long long*>(smem);       // (P,)
-  float4* ray_a = reinterpret_cast<float4*>(key + P);        // (P,) list
-  float4* ray_b = ray_a + P;                                 // (P,) list
-  float* box_s = reinterpret_cast<float*>(ray_b + P);        // (G * F, 6)
+  long long* key = reinterpret_cast<long long*>(smem);       // (B,)
+  float4* ray_a = reinterpret_cast<float4*>(key + B);        // (B,) list
+  float4* ray_b = ray_a + B;                                 // (B,) list
+  float* box_s = reinterpret_cast<float*>(ray_b + B);        // (G * F, 6)
   int* sid_s = reinterpret_cast<int*>(box_s + kChunk * 6);   // (G * F,)
   float* ent_s = reinterpret_cast<float*>(sid_s + kChunk);   // (G,)
   int* n_list = reinterpret_cast<int*>(ent_s + G);           // [3]
   unsigned* cand = reinterpret_cast<unsigned*>(n_list + 3);  // [3]
+  long long* row = kCount ? counts_out + tile * kCountCols : nullptr;
+  Spans<kCount> sp;
 
   float t;
   int32_t best = -1;
-  const bwfold::Ray r = bwfold::load_ray(rays, tile, P, lane, &t);
+  const bwfold::Ray r = bwfold::load_ray(rays, tile, P, part.r0 + lane, &t);
   key[lane] = fold_key(t, best);
   if (lane < 3) {
     n_list[lane] = 0;
@@ -213,6 +279,7 @@ __device__ __forceinline__ void gated_tile(
   long long folded = 0, issued = 0;
   int epoch = 0;                 // list barriers so far
   const int cnt = counts[tile];
+  sp.start();
   for (int s = 0; s < cnt; ++s) {
     const int g = s % G;
     if (g == 0) {
@@ -220,14 +287,14 @@ __device__ __forceinline__ void gated_tile(
       // so that a slot's gates wait on no load from device memory
       __syncthreads();           // every thread is done with the last chunk
       const int ns = min(G, cnt - s);
-      for (int i = lane; i < ns * F * 6; i += P) {
+      for (int i = lane; i < ns * F * 6; i += B) {
         const int m = i / 6;
         const int64_t mid = static_cast<int64_t>(sl[s + m / F]) * F + m % F;
         const int64_t sid = mid < K ? mid : K;
         box_s[i] = __ldg(boxes + sid * 6 + (i - m * 6));
         if (i == m * 6) sid_s[m] = static_cast<int>(sid);
       }
-      for (int i = lane; i < ns; i += P) ent_s[i] = ent[s + i];
+      for (int i = lane; i < ns; i += B) ent_s[i] = ent[s + i];
       __syncthreads();
     }
     const float* bx = box_s + g * F * 6;
@@ -238,8 +305,9 @@ __device__ __forceinline__ void gated_tile(
     const unsigned warp_mine = __reduce_or_sync(0xffffffffu, mine);
     if (wl == 0 && warp_mine) atomicOr(&cand[s % 3], warp_mine);
     if (lane == 0) cand[(s + 1) % 3] = 0u;
-    // K1's exit vote; as a barrier it also publishes the member mask
+    // the exit vote; as a barrier it also publishes the member mask
     if (!__syncthreads_or(r.live && t >= ent_s[g])) break;
+    sp.mark(kGateVote);
     unsigned todo = cand[s % 3];
     bool refold = false;         // t fell since `mine`: gate again
     while (todo) {
@@ -269,10 +337,17 @@ __device__ __forceinline__ void gated_tile(
       __syncthreads();           // the list is complete
       const int n = n_list[epoch % 3];
       ++epoch;
+      sp.mark(kList);
       if (n == 0) continue;
-      issued += fold_listed<kCount>(q, id, rows, tid, C, P, lane, n, pad,
+      if (kCount) {
+        await_tri(q, id, row);
+        sp.mark(kWait);
+      }
+      issued += fold_listed<kCount>(q, id, rows, tid, C, B, lane, n, pad,
                                     ray_a, ray_b, key);
+      sp.mark(kTests);
       __syncthreads();           // every key is final for this member
+      sp.mark(kMerge);
       if (pass) {
         const long long k = key[lane];
         t = key_t(k);
@@ -282,14 +357,16 @@ __device__ __forceinline__ void gated_tile(
       if (kCount) folded += 1;
     }
   }
-  t_out[tile * P + lane] = t;
-  tri_out[tile * P + lane] = best;
+  t_out[tile * P + part.r0 + lane] = t;
+  tri_out[tile * P + part.r0 + lane] = best;
   if (kCount) {
-    if (lane == 0) counts_out[tile * 2] = folded;
+    if (lane == 0 && folded)
+      atomicAdd(reinterpret_cast<unsigned long long*>(row),
+                static_cast<unsigned long long>(folded));
     if (wl == 0 && issued)
-      atomicAdd(reinterpret_cast<unsigned long long*>(counts_out + tile * 2
-                                                      + 1),
+      atomicAdd(reinterpret_cast<unsigned long long*>(row + 1),
                 static_cast<unsigned long long>(issued));
+    sp.flush(row, wl);
   }
 }
 

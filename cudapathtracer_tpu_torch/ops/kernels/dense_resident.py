@@ -18,14 +18,22 @@ what its design does about that. Beside it:
   CUDA tensors (and raises if the build or the launch fails) and takes the
   plain version only for tensors on the CPU. ``launches`` counts kernel
   launches; ``dense_intersect_resident_plain.calls`` counts plain calls.
-  Given ``counts_out`` (Tl, 2) int64 on the card, it launches the kernel's
-  counting instance instead, which also writes per tile the slots folded
-  and the lane tests issued (a lane test is one test body run by one lane,
-  its result used or not); the main path never passes it.
+  Given ``counts_out`` (Tl, COUNT_COLS) int64 on the card, it launches the
+  kernel's counting instance instead, which also writes per tile the
+  clusters folded (summed over the blocks of the tile that fold them), the
+  lane tests issued (a lane test is one test body run by one lane, its
+  result used or not) and the clock cycles of each phase of the fold
+  (``PHASES``); the main path never passes it.
+* ``fold_schedule``, a plain count of a gated schedule: the clusters that
+  groups of rays fold when each group takes its own exit vote and gates
+  with its own rays' t (a group of P rays is K2's block per tile,
+  ``k1_group(P)`` rays K1's blocks), for holding a counting instance's
+  first column.
 * What K2 (``dense.py``) and K3 (``dense_super.py``) share with K1: the
-  uncounted plain fold ``plain_fold``, the input checks, the build
-  (``load_fold_kernel``) and the launch (``launch_fold``), and the gated
-  fold's closest-hit key (``fold_key``, ``unpack_key``; for tests).
+  uncounted plain fold ``plain_fold``, the kernels' gate ``box_gate``, the
+  input checks, the build (``load_fold_kernel``) and the launch
+  (``launch_fold``), and the gated fold's closest-hit key (``fold_key``,
+  ``unpack_key``; for tests).
 
 Inputs, for Tl tiles of P rays and a shortlist of M slots:
 ids (Tl, M) i32 cluster ids ascending by entry, with K past each count;
@@ -55,13 +63,33 @@ HEADERS = [os.path.join(PACKAGE_DIR, "csrc", h)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
               "-fPIC"]
-# K2 and K3 (the gated fold) build with at most 64 registers a thread, so an
-# SM holds 2048 of their threads; uncapped, K3 takes 82 and fits 2 blocks of
-# 256. On one H100 80GB HBM3 (700 W) the cap made K3 1.3-1.7x and K2
-# 1.06-1.08x faster at chip_smoke.py's shapes, for 32 bytes of spills
+# The gated fold builds with at most 64 registers a thread, so an SM holds
+# 1024 of its threads; uncapped, K3 takes 82 and fits 2 blocks of 256. On
+# one H100 80GB HBM3 (700 W) the cap made K3 1.3-1.7x, K2 1.06-1.08x and K1
+# 1.2-1.3x faster at chip_smoke.py's shapes, for 16-88 bytes of stack
 # (tools/tune_gated_fold.py).
 GATED_FOLD_FLAGS = ["-maxrregcount=64"]
+# K1 folds a tile in blocks of at most this many rays (csrc/
+# dense_resident.cu:kBlockRays), each with its own votes and gates.
+K1_BLOCK_RAYS = 128
+
+
+def k1_group(P: int) -> int:
+    """The rays of one K1 block on tiles of P rays, which vote and gate
+    together (``fold_schedule``'s group): min(K1_BLOCK_RAYS, P), halved
+    until it divides P."""
+    b = min(K1_BLOCK_RAYS, P)
+    while P % b:
+        b //= 2
+    return b
+
+
 ROWS = 12
+# A counting instance's columns per tile: clusters (K3: members) folded,
+# lane tests issued, then the clock64() cycles of each phase of the fold,
+# summed over the tile's warps (csrc/gated_fold.cuh).
+PHASES = ("gate_vote", "list", "wait", "tests", "merge")
+COUNT_COLS = 2 + len(PHASES)
 MASKED_T_INIT = -3.0e38
 _FAR_BOX = 1.0e7
 
@@ -121,13 +149,85 @@ def plain_fold(ids, counts, entries, rays, packed, tri, boxes,
     init (cap, -1), which is what the kernel's sequential
     ``ts < t or (ts == t and id < best)`` computes. ``entries`` and
     ``boxes`` only steer the kernel's skipping, so they are unused here."""
+    return _fold(ids, counts, entries, rays, packed, tri, boxes,
+                 chunk_elems)[:2]
+
+
+def _init(rays):
+    """The fold's init (t, id) (Tl, P): min(cap, MAX_FLOAT) and -1 for live
+    lanes, -3e38 for masked ones."""
+    live = rays[:, 6] > 0.5
+    t = torch.where(live, torch.clamp(rays[:, 7], max=MAX_FLOAT),
+                    MASKED_T_INIT)
+    return t, torch.full(t.shape, -1, dtype=torch.int32, device=rays.device)
+
+
+def _slot_hits(rays, packed, tri, sid):
+    """Each ray's closest (t, id) over the C triangles of one cluster per
+    tile: rays (n, 8, P), cluster ids sid (n,) -> (n, P) each, misses at
+    (MAX_FLOAT, lowest id)."""
+    o = [rays[:, i, :, None] for i in range(6)]       # (n, P, 1)
+    cl = packed[sid][:, :, None, :]                   # (n, 12, 1, C)
+    n = Vec3(cl[:, 0], cl[:, 1], cl[:, 2])
+    sx = Vec3(o[0] - cl[:, 3], o[1] - cl[:, 4], o[2] - cl[:, 5])
+    d = Vec3(o[3], o[4], o[5])
+    nd = dot(d, n)
+    parallel = torch.abs(nd) < EPS_PARALLEL
+    inv = 1.0 / nd
+    t = -dot(sx, n) * inv
+    w = fma3(d, t, sx)
+    bu = dot(Vec3(cl[:, 6], cl[:, 7], cl[:, 8]), w)
+    bv = dot(Vec3(cl[:, 9], cl[:, 10], cl[:, 11]), w)
+    bw = 1.0 - bu - bv
+    reject = parallel | (bu < 0.0) | (bv < 0.0) | (bw < 0.0) | (t <= 0.0)
+    ts = torch.where(reject, MAX_FLOAT, t)            # (n, P, C)
+    t_new = torch.amin(ts, dim=2)
+    id_new = torch.amin(
+        torch.where(ts == t_new[..., None], tri[sid][:, None, :], 0x7FFFFFFF),
+        dim=2).to(torch.int32)
+    return t_new, id_new
+
+
+def guarded_inv(d):
+    """1 / d with |d| raised to at least 1e-30 (``bw_fold.cuh:
+    guarded_inv``)."""
+    return 1.0 / torch.where(d.abs() < 1e-30,
+                             torch.where(d < 0, -1e-30, 1e-30), d)
+
+
+def box_gate(bx, o, inv, t):
+    """The kernels' box gate (``csrc/bw_fold.cuh:box_gate``) in the same
+    float32 operations, without the lane mask: boxes ``bx`` (..., 6)
+    [lo.xyz, hi.xyz], broadcast by the caller against the rays' origins
+    ``o`` and guarded inverse directions ``inv`` (3 tensors each) and their
+    t."""
+    lo = [(bx[..., k, None] - o[k]) * inv[k] for k in range(3)]
+    hi = [(bx[..., 3 + k, None] - o[k]) * inv[k] for k in range(3)]
+    tmin = torch.maximum(torch.maximum(torch.minimum(lo[0], hi[0]),
+                                       torch.minimum(lo[1], hi[1])),
+                         torch.minimum(lo[2], hi[2]))
+    tmax = torch.minimum(torch.minimum(torch.maximum(lo[0], hi[0]),
+                                       torch.maximum(lo[1], hi[1])),
+                         torch.maximum(lo[2], hi[2]))
+    return (tmin <= tmax) & (tmax >= 0) & (tmin <= t)
+
+
+def _fold(ids, counts, entries, rays, packed, tri, boxes, chunk_elems,
+          group=None):
+    """plain_fold, or with ``group`` the gated schedule of ``fold_schedule``
+    -> (t, id, folds per tile or None)."""
     Tl, M, P, C = _check_inputs(ids, counts, entries, rays, packed, tri,
                                 boxes)
-    o = [rays[:, i, :, None] for i in range(6)]       # (Tl, P, 1)
-    live = rays[:, 6] > 0.5
-    t_best = torch.where(live, torch.clamp(rays[:, 7], max=MAX_FLOAT),
-                         MASKED_T_INIT)
-    tri_best = torch.full((Tl, P), -1, dtype=torch.int32, device=rays.device)
+    t_best, tri_best = _init(rays)
+    folds = None
+    if group is not None:
+        if group < 1 or P % group:
+            raise ValueError(f"group {group} must divide the tile size {P}")
+        live = rays[:, 6] > 0.5
+        inv = guarded_inv(rays[:, 3:6])
+        alive = torch.ones((Tl, P // group), dtype=torch.bool,
+                           device=rays.device)
+        folds = torch.zeros(Tl, dtype=torch.int64, device=rays.device)
     step = max(1, chunk_elems // (P * C))
     n_slots = int(counts.max()) if Tl else 0
     for s in range(n_slots):
@@ -135,32 +235,42 @@ def plain_fold(ids, counts, entries, rays, packed, tri, boxes,
         for a0 in range(0, act.numel(), step):
             tiles = act[a0:a0 + step]
             sid = ids[tiles, s].long()
-            cl = packed[sid][:, :, None, :]               # (n, 12, 1, C)
-            ox, oy, oz, dx, dy, dz = (v[tiles] for v in o)
-            n = Vec3(cl[:, 0], cl[:, 1], cl[:, 2])
-            sx = Vec3(ox - cl[:, 3], oy - cl[:, 4], oz - cl[:, 5])
-            d = Vec3(dx, dy, dz)
-            nd = dot(d, n)
-            parallel = torch.abs(nd) < EPS_PARALLEL
-            inv = 1.0 / nd
-            t = -dot(sx, n) * inv
-            w = fma3(d, t, sx)
-            bu = dot(Vec3(cl[:, 6], cl[:, 7], cl[:, 8]), w)
-            bv = dot(Vec3(cl[:, 9], cl[:, 10], cl[:, 11]), w)
-            bw = 1.0 - bu - bv
-            reject = (parallel | (bu < 0.0) | (bv < 0.0) | (bw < 0.0)
-                      | (t <= 0.0))
-            ts = torch.where(reject, MAX_FLOAT, t)        # (n, P, C)
-            t_new = torch.amin(ts, dim=2)
-            ids_c = tri[sid][:, None, :]
-            id_new = torch.amin(
-                torch.where(ts == t_new[..., None], ids_c, 0x7FFFFFFF),
-                dim=2).to(torch.int32)
             tb, ib = t_best[tiles], tri_best[tiles]
+            t_new, id_new = _slot_hits(rays[tiles], packed, tri, sid)
             better = (t_new < tb) | ((t_new == tb) & (id_new < ib))
+            if group is not None:
+                # the group's exit vote (sticky: a group that ends stays
+                # ended), then each ray's gate at its t before the slot
+                lv = live[tiles]
+                vote = (lv & (tb >= entries[tiles, s, None])).reshape(
+                    -1, P // group, group).any(dim=2)
+                al = alive[tiles] & vote
+                alive[tiles] = al
+                gate = (lv & al.repeat_interleave(group, dim=1)
+                        & box_gate(boxes[sid], [rays[tiles, k]
+                                                for k in range(3)],
+                                   [inv[tiles, k] for k in range(3)], tb))
+                folds[tiles] += gate.reshape(-1, P // group, group).any(
+                    dim=2).sum(dim=1)
+                better &= gate
             t_best[tiles] = torch.where(better, t_new, tb)
             tri_best[tiles] = torch.where(better, id_new, ib)
-    return t_best, tri_best
+    return t_best, tri_best, folds
+
+
+def fold_schedule(ids, counts, entries, rays, packed, tri, boxes, group,
+                  chunk_elems: int = 1 << 24):
+    """A plain count of the kernels' gated schedule, for groups of ``group``
+    consecutive rays of each tile (P: K2's block per tile; ``k1_group(P)``:
+    K1's blocks of at most K1_BLOCK_RAYS rays). Slot by slot, a group ends
+    at the first slot whose entry no live ray of it reaches (with its t
+    before the slot); otherwise each of its rays folds the slot's cluster if
+    it passes the cluster's box gate at that t, and the group folds the
+    cluster if any of its rays does. -> (t, id, clusters folded per tile
+    summed over the groups (Tl,) int64). The gate skips only clusters that
+    cannot improve a hit, so (t, id) is ``plain_fold``'s."""
+    return _fold(ids, counts, entries, rays, packed, tri, boxes, chunk_elems,
+                 group)
 
 
 def dense_intersect_resident_plain(ids, counts, entries, rays, packed, tri,
@@ -191,13 +301,13 @@ def unpack_key(key):
 
 
 def load_fold_kernel(lib_name: str, source: str, symbol: str, n_ints: int,
-                     flags=()):
-    """Build ``source`` (with its headers; NVCC_FLAGS and ``flags``) into
-    ``build/lib_name`` and bind ``symbol(10 pointers, n_ints ints, stream)
-    -> cudaError_t``."""
+                     flags=(), headers=HEADERS):
+    """Build ``source`` (which includes ``headers``; NVCC_FLAGS and
+    ``flags``) into ``build/lib_name`` and bind ``symbol(10 pointers, n_ints
+    ints, stream) -> cudaError_t``."""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     lib = build_and_load(lib_name, [source], [nvcc] + NVCC_FLAGS + list(flags),
-                         headers=HEADERS)
+                         headers=headers)
     fn = getattr(lib, symbol)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * n_ints
@@ -209,19 +319,19 @@ def launch_fold(load, name, ids, counts, entries, rays, packed, tri, boxes,
                 extra=(), counts_out=None):
     """Check the inputs, launch ``load()``'s kernel with (pointers, Tl, M,
     P, C, *extra) on the current stream and return (t, tri); raise if the
-    launch fails. With ``counts_out`` (Tl, 2) int64, zero it and launch the
-    counting instance."""
+    launch fails. With ``counts_out`` (Tl, COUNT_COLS) int64, zero it and
+    launch the counting instance."""
     Tl, M, P, C = _check_inputs(ids, counts, entries, rays, packed, tri,
                                 boxes)
     if P % 32 != 0 or not 0 < P <= 1024:
         raise ValueError(f"tile size {P} must be a multiple of 32 <= 1024")
     if counts_out is not None:
-        if (tuple(counts_out.shape) != (Tl, 2)
+        if (tuple(counts_out.shape) != (Tl, COUNT_COLS)
                 or counts_out.dtype != torch.int64
                 or counts_out.device != rays.device
                 or not counts_out.is_contiguous()):
-            raise ValueError(f"counts_out must be contiguous int64 (Tl, 2) "
-                             f"on {rays.device}")
+            raise ValueError(f"counts_out must be contiguous int64 (Tl, "
+                             f"{COUNT_COLS}) on {rays.device}")
         counts_out.zero_()
     t = torch.empty((Tl, P), dtype=torch.float32, device=rays.device)
     tri_out = torch.empty((Tl, P), dtype=torch.int32, device=rays.device)
@@ -255,7 +365,8 @@ def is_cpu(rays, counts_out=None):
 @functools.cache
 def _load_kernel():
     return load_fold_kernel("libdense_resident.so", SOURCE,
-                            "dense_resident_launch", 4)
+                            "dense_resident_launch", 5,
+                            flags=GATED_FOLD_FLAGS)
 
 
 def build():
@@ -272,7 +383,8 @@ def dense_intersect_resident(ids, counts, entries, rays, packed, tri, boxes,
         return dense_intersect_resident_plain(ids, counts, entries, rays,
                                               packed, tri, boxes)
     out = launch_fold(_load_kernel, "dense_resident", ids, counts, entries,
-                      rays, packed, tri, boxes, counts_out=counts_out)
+                      rays, packed, tri, boxes, extra=(packed.shape[0] - 1,),
+                      counts_out=counts_out)
     dense_intersect_resident.launches += 1
     return out
 

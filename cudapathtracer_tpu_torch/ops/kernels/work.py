@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from .dense_resident import box_gate, guarded_inv
+
 
 def needed_work(sl, t_final, pack, num_tris, F=None):
     """-> (tests, touched clusters, bytes) for shortlists ``sl``
@@ -29,9 +31,7 @@ def needed_work(sl, t_final, pack, num_tris, F=None):
     P = sl.rays.shape[2]
     live = sl.rays[:, 6] > 0.5
     o = sl.rays[:, 0:3]
-    d = sl.rays[:, 3:6]
-    inv = 1.0 / torch.where(d.abs() < 1e-30,
-                            torch.where(d < 0, -1e-30, 1e-30), d)
+    inv = guarded_inv(sl.rays[:, 3:6])
     n_max = int(sl.counts.max()) if Tl else 0
     width = n_max * (F or 1)
     tests = 0
@@ -46,23 +46,14 @@ def needed_work(sl, t_final, pack, num_tris, F=None):
             j = torch.arange(F, device=ids.device)
             ids = torch.clamp(ids[:, :, None] * F + j, max=K).flatten(1)
             ok = ok.repeat_interleave(F, dim=1)
-        bx = boxes[ids]                                 # (n, width, 6)
-        lo = [(bx[:, :, k, None] - o[a:b, None, k]) * inv[a:b, None, k]
-              for k in range(3)]
-        hi = [(bx[:, :, 3 + k, None] - o[a:b, None, k]) * inv[a:b, None, k]
-              for k in range(3)]
-        tmin = torch.maximum(torch.maximum(torch.minimum(lo[0], hi[0]),
-                                           torch.minimum(lo[1], hi[1])),
-                             torch.minimum(lo[2], hi[2]))
-        tmax = torch.minimum(torch.minimum(torch.maximum(lo[0], hi[0]),
-                                           torch.maximum(lo[1], hi[1])),
-                             torch.maximum(lo[2], hi[2]))
-        need = ((tmin <= tmax) & (tmax >= 0) & (tmin <= t_final[a:b, None])
+        need = (box_gate(boxes[ids], [o[a:b, None, k] for k in range(3)],
+                         [inv[a:b, None, k] for k in range(3)],
+                         t_final[a:b, None])
                 & live[a:b, None] & ok[:, :, None])     # (n, width, P)
         per_cluster = need.sum(dim=2)
         tests += int((per_cluster * real[ids]).sum())
         touched[ids[per_cluster > 0]] = True
-        del lo, hi, tmin, tmax, need
+        del need
     n_touched = int(touched[:K].sum())
     nbytes = (sl.rays.numel() * 4 + Tl * 4 + int(sl.counts.sum()) * 8
               + n_touched * ((12 + 1) * C * 4 + 6 * 4) + Tl * P * 8)

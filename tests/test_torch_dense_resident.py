@@ -14,7 +14,14 @@ tests/test_torch_dense_resident.py``."""
 import numpy as np
 import pytest
 import torch
-from torch_fold_cases import colonnade_case, jax_scene, packet_data, shortlists
+from torch_fold_cases import (
+    SYNTHETIC_CASES,
+    colonnade_case,
+    jax_scene,
+    packet_data,
+    shortlists,
+    synthetic_case,
+)
 
 from cudapathtracer_tpu_torch.models import procedural as tproc
 from cudapathtracer_tpu_torch.ops.kernels import dense_resident as tdr
@@ -92,14 +99,114 @@ def test_wrapper_checks_inputs(scene):
             counts_out=torch.zeros((sl.ids.shape[0], 2), dtype=torch.int64))
 
 
+def _schedule_reference(args, group):
+    """The gated schedule's clusters folded per tile, tile by tile and group
+    by group in plain Python: a group ends at the first slot whose entry no
+    live ray of it reaches; a ray folds a slot's cluster when it passes the
+    cluster's box gate at its current t; the group folds it when any of its
+    rays does."""
+    ids, counts, entries, rays, packed, tri, boxes = args
+    Tl, P = rays.shape[0], rays.shape[2]
+    inv = tdr.guarded_inv(rays[:, 3:6])
+    folds = []
+    for i in range(Tl):
+        t, best = tdr._init(rays[i:i + 1])
+        t, best = t[0], best[0]
+        live = rays[i, 6] > 0.5
+        n = 0
+        for g0 in range(0, P, group):
+            lanes = slice(g0, g0 + group)
+            for s in range(int(counts[i])):
+                if not bool((live[lanes] & (t[lanes] >= entries[i, s])).any()):
+                    break
+                sid = ids[i, s].long()
+                gate = live[lanes] & tdr.box_gate(
+                    boxes[sid], [rays[i, k, lanes] for k in range(3)],
+                    [inv[i, k, lanes] for k in range(3)], t[lanes])
+                if not bool(gate.any()):
+                    continue
+                n += 1
+                tn, idn = tdr._slot_hits(rays[i:i + 1], packed, tri,
+                                         sid[None])
+                tn, idn = tn[0, lanes], idn[0, lanes]
+                tb, ib = t[lanes], best[lanes]
+                better = gate & ((tn < tb) | ((tn == tb) & (idn < ib)))
+                t[lanes] = torch.where(better, tn, tb)
+                best[lanes] = torch.where(better, idn, ib)
+        folds.append(n)
+    return torch.tensor(folds, dtype=torch.int64)
+
+
+@pytest.mark.parametrize("case", SYNTHETIC_CASES + ("colonnade",))
+@pytest.mark.parametrize("group", [32, 64, 128])
+def test_fold_schedule_counts_and_hits(case, group):
+    """fold_schedule on tiles of P = 128 rays, the plain count of groups
+    of one warp (32), of blocks that cover part of a tile (64, as K1's
+    blocks of 128 do at P = 256) and of a block per tile (128, K2's), folds
+    per tile what a Python loop over tiles, groups and slots folds, and
+    returns plain_fold's hits bit for bit: the gates skip only clusters that
+    cannot improve a hit."""
+    if case == "colonnade":
+        sl, pack, _ = colonnade_case(128, torch.device("cpu"))
+        args = (sl.ids, sl.counts, sl.entries, sl.rays, *pack)
+    else:
+        args, _ = synthetic_case(case, 128, 128)
+    t, tri, folds = tdr.fold_schedule(*args, group)
+    want_t, want_tri = tdr.plain_fold(*args)
+    np.testing.assert_array_equal(t.numpy().view(np.int32),
+                                  want_t.numpy().view(np.int32))
+    np.testing.assert_array_equal(tri.numpy(), want_tri.numpy())
+    np.testing.assert_array_equal(folds.numpy(),
+                                  _schedule_reference(args, group).numpy())
+    assert bool((folds <= args[1].long() * (128 // group)).all())
+
+
+@pytest.mark.parametrize("tile_size,group", [(32, 32), (64, 64), (96, 96),
+                                             (128, 128), (256, 128),
+                                             (384, 128), (1024, 128)])
+def test_k1_group(tile_size, group):
+    """K1's blocks: min(K1_BLOCK_RAYS, P) rays, halved until they divide
+    the tile size P, so a block never straddles two tiles."""
+    assert tdr.k1_group(tile_size) == group
+    assert tile_size % group == 0 and group <= tdr.K1_BLOCK_RAYS
+
+
+def test_fold_schedule_checks_group():
+    args, _ = synthetic_case("ties", 128, 128)
+    with pytest.raises(ValueError, match="group"):
+        tdr.fold_schedule(*args, 48)
+
+
+def test_max_float_tie_keeps_the_init():
+    """A hit at exactly t = MAX_FLOAT ties the init (MAX_FLOAT, -1) of a ray
+    whose cap lies past it, and loses the tie: the ray keeps (MAX_FLOAT,
+    -1). So no test at MAX_FLOAT, hit or reject, ever wins, though the
+    kernels' guard before the key's atomic (gated_fold.cuh:fold_listed,
+    ts <= the ray's t) lets such a test through."""
+    args, _ = synthetic_case("max_float_cap", 128, 128)
+    ids, counts, entries, rays, packed, tri, boxes = args
+    far = packed.shape[0] - 2           # the far cluster, before the sentinel
+    assert far in ids[0, :counts[0]].tolist()
+    tn, idn = tdr._slot_hits(rays[:1], packed, tri, torch.tensor([far]))
+    assert bool((tn == 1e5).all()) and bool((idn[0] == tri[far, 0]).all())
+    assert bool((rays[0, 7] > 1e5).all())
+    t, best = tdr.plain_fold(*args)
+    assert bool((t[0] == 1e5).all()) and bool((best[0] == -1).all())
+    assert int((best[1:] >= 0).sum()) > 100
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["camera", "random"])
 def test_cuda_kernel_matches_plain(kind):
-    """On a card: K1 and its plain version agree bit for bit, and the
-    wrapper counts the launch."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
-    dev = torch.device("cuda")
+    """On a card: K1 and its plain version agree bit for bit on 64-ray
+    tiles, and the wrapper counts the launch."""
+    dev = _cuda()
     ts = tproc.to_scene(tproc.cornell_with_sphere_mesh(subdiv=2), "cpu")
     tpd = packet_data(tren.build_bvh_for_scene(ts, 4, cluster_size=128), ts)
     sl = shortlists(tpd, kind, True)
@@ -118,18 +225,64 @@ def test_cuda_kernel_matches_plain(kind):
 @pytest.mark.parametrize("cluster_size", [128, 1024])
 def test_cuda_counting_instance(cluster_size):
     """On a card: K1's counting instance returns the timed instance's hits,
-    folds at most the listed slots and issues at least the tests the rays
-    need, in whole warps of C tests."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
-    sl, pack, num_tris = colonnade_case(cluster_size, torch.device("cuda"))
+    folds per tile exactly what the plain count of its schedule folds, and
+    issues at least the tests the rays need, in whole warps, and at most C
+    tests for each ray of a group that folds a cluster."""
+    dev = _cuda()
+    sl, pack, num_tris = colonnade_case(cluster_size, dev)
     args = (sl.ids, sl.counts, sl.entries, sl.rays, *pack)
     t, tri = tdr.dense_intersect_resident(*args)
-    counts = torch.empty((sl.ids.shape[0], 2), dtype=torch.int64,
-                         device="cuda")
+    counts = torch.empty((sl.ids.shape[0], tdr.COUNT_COLS),
+                         dtype=torch.int64, device=dev)
     tc, tric = tdr.dense_intersect_resident(*args, counts_out=counts)
     torch.cuda.synchronize()
     assert torch.equal(t, tc) and torch.equal(tri, tric)
-    assert bool((counts[:, 0] <= sl.counts).all())
-    assert bool((counts[:, 1] % (32 * cluster_size) == 0).all())
+    group = tdr.k1_group(sl.rays.shape[2])
+    assert torch.equal(counts[:, 0], tdr.fold_schedule(*args, group)[2])
+    assert bool((counts[:, 1] % 32 == 0).all())
     assert needed_work(sl, t, pack, num_tris)[0] <= int(counts[:, 1].sum())
+    assert int(counts[:, 1].sum()) <= cluster_size * group * int(
+        counts[:, 0].sum())
+    assert bool((counts[:, 2:] >= 0).all()) and int(counts[:, 2:].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster_size", [128, 256, 512, 1024])
+@pytest.mark.parametrize("tile_size", [128, 256])
+def test_cuda_kernel_at_widths(cluster_size, tile_size):
+    """On a card: K1 equals its plain version bit for bit at every cluster
+    width the resident route sends it (multiples of 128) and both tile
+    sizes, and the wrapper counts the launch."""
+    dev = _cuda()
+    sl, pack, _ = colonnade_case(cluster_size, dev, tile_size=tile_size)
+    args = (sl.ids, sl.counts, sl.entries, sl.rays, *pack)
+    n = tdr.dense_intersect_resident.launches
+    t, tri = tdr.dense_intersect_resident(*args)
+    torch.cuda.synchronize()
+    assert tdr.dense_intersect_resident.launches == n + 1
+    pt, ptri = tdr.dense_intersect_resident_plain(*args)
+    np.testing.assert_array_equal(tri.cpu().numpy(), ptri.cpu().numpy())
+    np.testing.assert_array_equal(t.cpu().numpy(), pt.cpu().numpy())
+    assert (tri >= 0).sum() > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SYNTHETIC_CASES)
+@pytest.mark.parametrize("cluster_size,tile_size", [(128, 128), (256, 256)])
+def test_cuda_corner_cases(case, cluster_size, tile_size):
+    """On a card: K1 equals its plain version bit for bit on exact-t ties,
+    masked lanes, caps equal to a hit, negative caps, padding-heavy
+    clusters and hits at exactly MAX_FLOAT, and its counting instance folds
+    what its schedule folds."""
+    dev = _cuda()
+    args, _ = synthetic_case(case, cluster_size, tile_size, dev)
+    t, tri = tdr.dense_intersect_resident(*args)
+    pt, ptri = tdr.dense_intersect_resident_plain(*args)
+    np.testing.assert_array_equal(tri.cpu().numpy(), ptri.cpu().numpy())
+    np.testing.assert_array_equal(t.cpu().numpy(), pt.cpu().numpy())
+    counts = torch.empty((args[0].shape[0], tdr.COUNT_COLS),
+                         dtype=torch.int64, device=dev)
+    tdr.dense_intersect_resident(*args, counts_out=counts)
+    group = tdr.k1_group(tile_size)
+    assert torch.equal(counts[:, 0], tdr.fold_schedule(*args, group)[2])
+

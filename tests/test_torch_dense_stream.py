@@ -129,21 +129,25 @@ def test_cuda_kernel_matches_plain_and_k1(cluster_size):
 @pytest.mark.parametrize("cluster_size", [128, 512, 1024])
 def test_cuda_counting_instance(cluster_size):
     """On a card: K2's counting instance returns the timed instance's hits,
-    folds exactly K1's slots on every tile, and issues at least the tests
-    the rays need and at most K1's."""
+    folds per tile exactly what the plain count of its block per tile folds
+    (K1 folds in blocks of at most 128 rays, tdr.k1_group, so at P = 256 the
+    two fold different slots), and both issue at least the tests the rays
+    need."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
     sl, pack, num_tris = colonnade_case(cluster_size, torch.device("cuda"))
     args = (sl.ids, sl.counts, sl.entries, sl.rays, *pack)
     t, tri = tk2.dense_intersect(*args)
-    c2 = torch.empty((sl.ids.shape[0], 2), dtype=torch.int64, device="cuda")
+    c2 = torch.empty((sl.ids.shape[0], tk1.COUNT_COLS), dtype=torch.int64,
+                     device="cuda")
     c1 = torch.empty_like(c2)
     t2, tri2 = tk2.dense_intersect(*args, counts_out=c2)
     tk1.dense_intersect_resident(*args, counts_out=c1)
     torch.cuda.synchronize()
     assert torch.equal(t, t2) and torch.equal(tri, tri2)
-    assert torch.equal(c2[:, 0], c1[:, 0])
+    P = sl.rays.shape[2]
+    assert torch.equal(c2[:, 0], tk1.fold_schedule(*args, P)[2])
     assert bool((c2[:, 0] <= sl.counts).all())
     needed = needed_work(sl, t, pack, num_tris)[0]
     assert needed > 0
-    assert needed <= int(c2[:, 1].sum()) <= int(c1[:, 1].sum())
+    assert needed <= int(c2[:, 1].sum()) and needed <= int(c1[:, 1].sum())

@@ -220,8 +220,8 @@ def test_cuda_kernel_at_cluster_widths(cluster_size):
                                         super_factor=f)
     args = (sl.ids, sl.counts, sl.entries, sl.rays, *pack)
     t, tri = tk3.dense_intersect_super(*args, f)
-    counts = torch.empty((sl.ids.shape[0], 2), dtype=torch.int64,
-                         device="cuda")
+    counts = torch.empty((sl.ids.shape[0], tk1.COUNT_COLS),
+                         dtype=torch.int64, device="cuda")
     tc, tric = tk3.dense_intersect_super(*args, f, counts_out=counts)
     pt, ptri = tk3.dense_intersect_super_plain(*args, f)
     torch.cuda.synchronize()

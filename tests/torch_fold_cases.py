@@ -57,10 +57,101 @@ def shortlists(tpd, kind, sort, max_clusters=16, **kw):
     return tpk.build_shortlists(o, d, mask, tpd, 64, max_clusters, **kw)
 
 
-def colonnade_case(cluster_size, dev, super_factor=None):
+SYNTHETIC_CASES = ("ties", "masked", "cap_is_hit", "negative_cap", "padding",
+                   "max_float_cap")
+
+
+def synthetic_case(case, C, P, dev="cpu", tiles=4, K=6, seed=0):
+    """A made-up scene of K clusters of C triangles and ``tiles`` tiles of P
+    rays from a seed (numpy), for the fold's corner cases:
+
+    * ties: half the triangles repeat another one's vertices under another
+      id, so hits tie at exactly the same t (the lower id must win);
+    * masked: every third ray masked (its t stays at -3e38);
+    * cap_is_hit: each ray's cap is the t of its closest hit (the init
+      (cap, -1) must keep that tie);
+    * negative_cap: half the caps negative;
+    * padding: two thirds of every cluster are padding triangles;
+    * max_float_cap: an extra cluster holds a triangle at z = 1e5 + 2, which
+      the first P rays, cast along +z from z = 2 above the other clusters,
+      hit at exactly t = 1e5 = MAX_FLOAT, with the scene's exit cap past it:
+      the hit ties the init (MAX_FLOAT, -1) and must not win, and neither
+      may a rejected test's (MAX_FLOAT, id).
+
+    -> (kernel inputs ids, counts, entries, rays, packed, tri, boxes on
+    ``dev``; the number of triangles)."""
+    rng = np.random.default_rng([seed, SYNTHETIC_CASES.index(case), C, P])
+    n_real = C // 3 if case == "padding" else C
+    centers = rng.uniform(-1.0, 1.0, (K, 1, 3))
+    v0 = centers + rng.uniform(-0.4, 0.4, (K, n_real, 3))
+    e1 = rng.uniform(-0.3, 0.3, (K, n_real, 3))
+    e2 = rng.uniform(-0.3, 0.3, (K, n_real, 3))
+    if case == "ties":          # the second half repeats the first
+        half = n_real // 2
+        for a in (v0, e1, e2):
+            a[:, half:2 * half] = a[:, :half]
+    if case == "max_float_cap":  # the far triangle, normal (0, 0, 4)
+        far = np.zeros((1, n_real, 3))
+        v0, e1, e2 = (np.concatenate([a, far]) for a in (v0, e1, e2))
+        v0[K, 0] = (-1.0, -1.0, 1e5 + 2.0)
+        e1[K, 0] = (2.0, 0.0, 0.0)
+        e2[K, 0] = (0.0, 2.0, 0.0)
+        K += 1
+    T = K * n_real
+    ids = rng.permutation(T).reshape(K, n_real)
+    if case == "max_float_cap":
+        ids[K - 1, 1:] = T      # the far cluster's one triangle; padding
+    lo = (v0 + np.minimum(0.0, np.minimum(e1, e2))).min(axis=1)
+    hi = (v0 + np.maximum(0.0, np.maximum(e1, e2))).max(axis=1)
+    if case == "max_float_cap":
+        lo[K - 1], hi[K - 1] = (-1.0, -1.0, 1e5 + 2.0), (1.0, 1.0, 1e5 + 2.0)
+
+    def block(a, fill):         # (K, n_real, ...) -> (K+1, C, ...)
+        out = np.full((K + 1, C) + a.shape[2:], fill, a.dtype)
+        out[:K, :n_real] = a
+        return out
+
+    f32 = np.float32
+    v = [TVec3(*(torch.from_numpy(block(a, 0.0)[..., k].astype(f32))
+                 for k in range(3))) for a in (v0, e1, e2)]
+    pd = tpk.PacketData(
+        cl_lo=TVec3(*(torch.from_numpy(lo[:, k].astype(f32))
+                      for k in range(3))),
+        cl_hi=TVec3(*(torch.from_numpy(hi[:, k].astype(f32))
+                      for k in range(3))),
+        v0=v[0], e1=v[1], e2=v[2],
+        tri=torch.from_numpy(block(ids, T).astype(np.int32)), num_tris=T)
+    R = tiles * P
+    o = rng.uniform(-1.5, 1.5, (R, 3))
+    d = rng.uniform(-1.0, 1.0, (R, 3)) * 0.3 + centers[
+        rng.integers(0, centers.shape[0], R), 0] - o
+    if case == "max_float_cap":
+        o[:P] = np.stack([rng.uniform(-0.4, 0.4, P), rng.uniform(-0.4, 0.4, P),
+                          np.full(P, 2.0)], axis=1)
+        d[:P] = (0.0, 0.0, 1.0)
+    mask = (np.arange(R) % 3 != 0) if case == "masked" else np.ones(R, bool)
+    sl = tpk.build_shortlists(
+        TVec3(*(torch.from_numpy(o[:, k].astype(f32)) for k in range(3))),
+        TVec3(*(torch.from_numpy(d[:, k].astype(f32)) for k in range(3))),
+        torch.from_numpy(mask), pd, P, K)
+    pack = tk1.pack_clusters(pd)
+    rays = sl.rays.clone()
+    if case == "cap_is_hit":
+        t, tri = tk1.plain_fold(sl.ids, sl.counts, sl.entries, rays, *pack)
+        rays[:, 7] = torch.where(tri >= 0, t, rays[:, 7])
+    elif case == "negative_cap":
+        neg = torch.from_numpy(-rng.uniform(0.0, 0.5, rays[:, 7].shape)
+                               .astype(f32))
+        rays[:, 7] = torch.where(torch.arange(P) % 2 == 0, neg, rays[:, 7])
+    args = (sl.ids, sl.counts, sl.entries, rays.contiguous(), *pack)
+    return tuple(a.to(dev) for a in args), T
+
+
+def colonnade_case(cluster_size, dev, super_factor=None, tile_size=128):
     """32^2 sorted camera rays (every 7th masked) of colonnade subdiv 3 at
-    cluster width ``cluster_size``, tiled by 128: (shortlists, pack) on
-    ``dev``, in super units with ``super_factor``, and the triangle count."""
+    cluster width ``cluster_size``, tiled by ``tile_size``: (shortlists,
+    pack) on ``dev``, in super units with ``super_factor``, and the triangle
+    count."""
     ts = tproc.to_scene(tproc.colonnade(subdiv=3), "cpu")
     tpd = packet_data(
         build_bvh_for_scene(ts, 4, cluster_size=cluster_size), ts)
@@ -71,7 +162,7 @@ def colonnade_case(cluster_size, dev, super_factor=None):
     perm = tpk.sort_rays(o, d, mask, tpd)
     sl = tpk.build_shortlists(o.map(lambda c: c[perm]),
                               d.map(lambda c: c[perm]), mask[perm], tpd,
-                              128, 4095, super_factor=super_factor)
+                              tile_size, 4095, super_factor=super_factor)
     sl = type(sl)(*(a.to(dev) for a in sl))
     pack = tuple(a.to(dev) for a in tk1.pack_clusters(tpd))
     return sl, pack, ts.num_tris
