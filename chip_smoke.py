@@ -1,14 +1,17 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-Drives the port's five render paths (PT+NEE through the packet engine and
-its CUDA kernels K1, K2 and K3) at the JAX bench's sizes and checks them:
+Drives the port's six render paths (five PT+NEE paths and BDPT, through the
+packet engine and its CUDA kernels K1, K2 and K3) at the JAX bench's sizes
+and checks them:
 
 1. device: a CUDA card is required; its name and power limit are printed;
 2. build: K1, K2, K3 (nvcc, sm_90a) and the native BVH builder, all
    started together, timed; each kernel's registers and spills as ptxas
    reports them;
-3. golden: a 64x64, 16 spp Cornell render on the card against
-   tests/goldens/cornell_pt_nee_64_spp16.ppm, under the golden tests' rule;
+3. goldens: a 64x64, 16 spp pt_nee Cornell render on the card against
+   tests/goldens/cornell_pt_nee_64_spp16.ppm, and a 32x32, 8 spp BDPT one
+   (the default integrator) against cornell_bdpt_32_spp8.ppm, under the
+   golden tests' rule;
 4. headline (resident route, K1): colonnade subdiv 3 (20,884 triangles,
    adaptive C = 256, P = 256). On the primary batch and a sorted bounce
    batch of a real pt_nee sample: K1 against its plain version on the
@@ -34,7 +37,19 @@ its CUDA kernels K1, K2 and K3) at the JAX bench's sizes and checks them:
    against a plain count of its block schedule, the windows;
 8. super (K3): colonnade subdiv 5, C = 256, two_level_cull="super",
    super_factor 8, super_list 255: the same steps, with K1 on the flat
-   shortlists of the same rays beside K3.
+   shortlists of the same rays beside K3;
+9. bdpt (K1): colonnade subdiv 3, BDPT at 512x512 (the JAX bench's BDPT
+   configuration, one sample a batch). The checks of step 4 on one
+   sample's three batches: the primary (R rays; K1 against its plain
+   version on the full batch), the joint subpath batch (2R) and the
+   connection batch (4R, capped at each segment's length + 2 eps; its
+   shortlists carry the caps). Then the visibility instances of K1, K2
+   and K3 (super shortlists of 8) on the connection rays, each against its
+   closest-hit instance on the whole batch and its plain version on
+   sampled tiles, timed beside it in turns, and the packet engine's
+   visibility decisions against its closest-hit ones; one sample's trace
+   calls; PATH_WINDOWS windows of 8 spp with vis_dropout off and on in
+   turns, whose images must be bit-identical, K1 alone launching.
 
 Each render path runs with every kernel's launch count and every plain
 version's call count set to 0 just before its timed windows and read just
@@ -51,13 +66,15 @@ and fold_fraction is folded over (group, slot) pairs listed. Counting
 launches are not timed and are not the path's. Each phase prints lines of
 its own; any failure raises. The line before the last is a JSON summary of
 the kernels (one K1 entry per resident path, with the bounce batch's
-numbers), the last line the device record.
+numbers, and dense_resident/bdpt with the connection batch's and the
+visibility instances' times), the last line the device record.
 
 Run: python3 chip_smoke.py
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -70,11 +87,18 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "goldens", "cornell_pt_nee_64_spp16.ppm")
+GOLDEN_BDPT = os.path.join(REPO, "tests", "goldens", "cornell_bdpt_32_spp8.ppm")
 HEADLINE_SIZE = 1024
 HEADLINE_SPP = 4
 HEADLINE_WINDOWS = 5
 PATH_SPP = 2
 PATH_WINDOWS = 5
+# the JAX bench's BDPT configuration (bench.py:150-187) but one sample a
+# batch: 512^2, windows of 8 spp, colonnade subdiv 3
+BDPT_SIZE = 512
+BDPT_SPP = 8
+# clusters per super of the visibility instances' super shortlists
+BDPT_SUPER_F = 8
 SAMPLE_TILES = 512
 FALLBACK_SIZE = 64
 # kernel vs plain: ids may differ only on exact-t ties, as the JAX
@@ -210,56 +234,59 @@ def sample_tiles(sl, n):
 
 
 def record_batches(scene, trace_fn, cam, cfg, base_key):
-    """The primary and first bounce batches of one pt_nee sample, as the
-    renderer's trace closure receives them."""
-    from cudapathtracer_tpu_torch.integrators.pt_nee import radiance_pt_nee
+    """The batches of one sample of ``cfg.integrator`` as the renderer's
+    trace closure receives them, each (o, d, mask, t_cap or None): pt_nee's
+    primary and first bounce batches; BDPT's primary batch (R rays), its
+    joint subpath batch (2R) and its capped connection batch (4R)."""
     from cudapathtracer_tpu_torch.ops.rng import pixel_keys, sample_key
     from cudapathtracer_tpu_torch.render.camera import camera_rays
-    from cudapathtracer_tpu_torch.utils.build import BUILD_LOG
+    from cudapathtracer_tpu_torch.render.renderer import _radiance
 
     dev = cam.pos.x.device
     idx = torch.arange(cfg.num_pixels, dtype=torch.int64, device=dev)
     calls = []
 
-    def recording(o, d, mask):
-        calls.append((o, d, mask))
-        return trace_fn(o, d, mask)
+    def recording(o, d, mask, t_cap=None, vis_band=0.0):
+        calls.append((o, d, mask, t_cap))
+        return trace_fn(o, d, mask, t_cap=t_cap, vis_band=vis_band)
 
     keys = pixel_keys(sample_key(base_key, 0), idx)
     o0, d0 = camera_rays(cam, idx, keys, lens=False)
-    radiance_pt_nee(o0, d0, scene, recording, keys)
+    _radiance(o0, d0, scene, recording, keys, cfg)
+    if cfg.integrator == "bdpt":
+        return {"primary": calls[0], "subpath": calls[1],
+                "connection": calls[2]}
     return {"primary": calls[0], "bounce1": calls[1]}
 
 
 def sorted_shortlists(batch, pd, P, cfg, super_factor=None):
-    """Sort one batch's rays as the packet engine does and build its
-    shortlists (in super units with ``super_factor``)."""
+    """Sort one batch's rays (and caps) as the packet engine does and build
+    its shortlists (in super units with ``super_factor``)."""
     from cudapathtracer_tpu_torch.ops import packets
     from cudapathtracer_tpu_torch.ops.vecmath import Vec3
 
-    o, d, mask = batch
+    o, d, mask, cap = batch
     perm = packets.sort_rays(o, d, mask, pd)
     return packets.build_shortlists(
         Vec3(o.x[perm], o.y[perm], o.z[perm]),
         Vec3(d.x[perm], d.y[perm], d.z[perm]), mask[perm], pd, P,
         cfg.max_clusters, super_factor=super_factor,
-        super_list=cfg.super_list)
+        super_list=cfg.super_list, t_cap=None if cap is None else cap[perm])
 
 
 def trace_breakdown(label, scene, trace_fn, cam, cfg, base_key):
     """One sample (primary trace included) with every trace call timed
     between synchronizes, against the sample's wall time."""
-    from cudapathtracer_tpu_torch.integrators.pt_nee import radiance_pt_nee
     from cudapathtracer_tpu_torch.ops.rng import pixel_keys, sample_key
     from cudapathtracer_tpu_torch.render.camera import camera_rays
-    from cudapathtracer_tpu_torch.utils.build import BUILD_LOG
+    from cudapathtracer_tpu_torch.render.renderer import _radiance
 
     dev = cam.pos.x.device
     idx = torch.arange(cfg.num_pixels, dtype=torch.int64, device=dev)
     trace_ms = []
 
-    def timed(o, d, mask):
-        h, ms = host_ms(lambda: trace_fn(o, d, mask))
+    def timed(o, d, mask, **kw):
+        h, ms = host_ms(lambda: trace_fn(o, d, mask, **kw))
         trace_ms.append(ms)
         return h
 
@@ -268,8 +295,8 @@ def trace_breakdown(label, scene, trace_fn, cam, cfg, base_key):
         o0, d0 = camera_rays(cam, idx, keys, lens=False)
         primary = timed(o0, d0, torch.ones(idx.shape, dtype=torch.bool,
                                            device=dev))
-        return radiance_pt_nee(o0, d0, scene, timed, keys,
-                               primary_hit=primary)
+        return _radiance(o0, d0, scene, timed, keys, cfg,
+                         primary_hit=primary)
 
     _, wall = host_ms(one_sample)
     print(f"{label}: sample trace_calls={len(trace_ms)} trace_ms="
@@ -278,23 +305,41 @@ def trace_breakdown(label, scene, trace_fn, cam, cfg, base_key):
           "after every trace call)")
 
 
+def reset_counts(kernels):
+    """Every kernel's launch count and every plain version's call count to
+    0."""
+    for _, wrapper, plain in kernels.values():
+        wrapper.launches = 0
+        plain.calls = 0
+
+
+def path_counts(label, kernels, expect):
+    """-> (launches by kernel, plain calls) since ``reset_counts``; raises
+    unless ``expect`` launched and nothing else ran."""
+    launches = {n: w.launches for n, (_, w, _) in kernels.items()}
+    plain_calls = sum(p.calls for _, _, p in kernels.values())
+    others = sum(v for n, v in launches.items() if n != expect)
+    if launches[expect] <= 0 or others or plain_calls:
+        raise AssertionError(f"{label}: the path did not run through "
+                             f"{expect} alone: {launches}, {plain_calls} "
+                             "plain calls")
+    return launches, plain_calls
+
+
 def render_windows(label, kernels, expect, run, cfg, spp, windows):
     """One warm-up window, then ``windows`` timed ones with every count at
     0 before them; the image must be finite and lit, ``expect`` must have
     launched and nothing else may have run. -> launches of ``expect``."""
     run()
     torch.cuda.synchronize()
-    for _, wrapper, plain in kernels.values():
-        wrapper.launches = 0
-        plain.calls = 0
+    reset_counts(kernels)
     walls = []
     for _ in range(windows):
         t0 = time.perf_counter()
         st = run()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    launches = {n: w.launches for n, (_, w, _) in kernels.items()}
-    plain_calls = sum(p.calls for _, _, p in kernels.values())
+    launches, plain_calls = path_counts(label, kernels, expect)
     img = np.stack([c.cpu().numpy() for c in st.img], axis=1)
     finite = bool(np.isfinite(img).all())
     rays = cfg.num_pixels * spp * (cfg.num_bounces + 1)
@@ -311,10 +356,6 @@ def render_windows(label, kernels, expect, run, cfg, spp, windows):
           f" plain_calls={plain_calls}")
     if img.shape != (cfg.num_pixels, 3) or not finite or img.max() <= 0:
         raise AssertionError(f"{label}: image is not finite and lit")
-    others = sum(v for n, v in launches.items() if n != expect)
-    if launches[expect] <= 0 or others or plain_calls:
-        raise AssertionError(f"{label}: the path did not run through "
-                             f"{expect} alone")
     return launches[expect]
 
 
@@ -357,6 +398,7 @@ def main():
     from cudapathtracer_tpu_torch.render import renderer
     from cudapathtracer_tpu_torch.render.camera import camera_rays
     from cudapathtracer_tpu_torch.utils.build import BUILD_LOG
+    from cudapathtracer_tpu_torch.utils.constants import EPS_VISIBILITY
 
     kernels = {
         "k1": (k1.build, k1.dense_intersect_resident,
@@ -396,12 +438,20 @@ def main():
     frac = check_golden(cpt.finalize_image(gst, gcfg), GOLDEN)
     print(f"golden: cornell_pt_nee_64_spp16 channels_off_by_more_than_2="
           f"{frac:.4%} (limit 0.5%)")
+    # the default integrator, BDPT
+    bcfg = cpt.RenderConfig(width=32, height=32, spp=8, samples_per_call=8)
+    bst = cpt.render(procedural.to_scene(procedural.cornell_box(), dev),
+                     cpt.make_camera(width=32, height=32, device=dev), bcfg,
+                     seed=1234, device=dev)
+    frac = check_golden(cpt.finalize_image(bst, bcfg), GOLDEN_BDPT)
+    print(f"golden: cornell_bdpt_32_spp8 integrator={bcfg.integrator} "
+          f"channels_off_by_more_than_2={frac:.4%} (limit 0.5%)")
 
-    def setup(label, subdiv, spp, **cfg_kw):
-        size = HEADLINE_SIZE
+    def setup(label, subdiv, spp, size=HEADLINE_SIZE, integrator="pt_nee",
+              **cfg_kw):
         scene = procedural.to_scene(procedural.colonnade(subdiv=subdiv), dev)
         cfg = cpt.RenderConfig(width=size, height=size, spp=spp,
-                               integrator="pt_nee", samples_per_call=spp,
+                               integrator=integrator, samples_per_call=spp,
                                reuse_primary_hit=True, **cfg_kw)
         t0 = time.perf_counter()
         bvh = renderer.build_bvh_for_scene(scene, cfg.leaf_size,
@@ -517,6 +567,155 @@ def main():
                     tiles=sl.ids.shape[0], plain_tiles=part.ids.shape[0],
                     issued=issued, needed=tests)
 
+    def vis_instances(label, batch, scene, prep, cfg, P, bvh):
+        """The visibility instances of K1, K2 (on the flat shortlists) and
+        K3 (on super shortlists of BDPT_SUPER_F clusters) on one capped
+        batch, each beside its closest-hit instance on the same lists:
+        t bit for bit the closest hit's, -3e38 exactly below the floor
+        cap - vis_band, ids the closest hit's elsewhere (whole batch); t and
+        the kept ids equal to the plain visibility version (sampled tiles);
+        K1's and K2's folds equal to the plain count of their schedule with
+        retirement; both instances timed in turns. Then the packet engine's
+        visibility query against its closest-hit query on the same rays:
+        every decision |t - len| <= eps equal, with len = t_cap - 2 eps.
+        -> the ms of each instance, for the JSON line."""
+        band = 3.0 * EPS_VISIBILITY
+        pd, pack = prep.pdata, prep.resident_pack
+        F = BDPT_SUPER_F
+        if pd.num_clusters <= 2 * F:
+            raise AssertionError(f"{label}: K = {pd.num_clusters} allows no "
+                                 f"super shortlists of {F}")
+        flat = sorted_shortlists(batch, pd, P, cfg)
+        sup = sorted_shortlists(batch, pd, P, cfg, super_factor=F)
+        out = {}
+        for name, sl, extra, group in (("k1", flat, (), k1.k1_group(P)),
+                                       ("k2", flat, (), P),
+                                       ("k3", sup, (F,), None)):
+            _, wrapper, plain = kernels[name]
+            args = (sl.ids, sl.counts, sl.entries, sl.rays, *pack)
+            closest = wrapper(*args, *extra)
+            vis = wrapper(*args, *extra, vis_band=band)
+            want = torch.where(closest[0] < sl.rays[:, 7] - band,
+                               k1.MASKED_T_INIT, closest[0])
+            keep = vis[0] != k1.MASKED_T_INIT
+            live = sl.rays[:, 6] > 0.5
+            whole = (torch.equal(vis[0].view(torch.int32),
+                                 want.view(torch.int32))
+                     and torch.equal(vis[1][keep], closest[1][keep]))
+            part = sample_tiles(sl, SAMPLE_TILES)
+            pargs = (part.ids, part.counts, part.entries, part.rays, *pack)
+            pv, plain_ms = host_ms(lambda: plain(*pargs, *extra,
+                                                 vis_band=band))
+            kv = wrapper(*pargs, *extra, vis_band=band)
+            pk = kv[0] != k1.MASKED_T_INIT
+            vs_plain = (torch.equal(kv[0].view(torch.int32),
+                                    pv[0].view(torch.int32))
+                        and torch.equal(kv[1][pk], pv[1][pk]))
+            folds = ""
+            if group is not None:
+                counts = torch.empty((part.ids.shape[0], k1.COUNT_COLS),
+                                     dtype=torch.int64, device=dev)
+                wrapper(*pargs, counts_out=counts, vis_band=band)
+                sched = k1.fold_schedule(*pargs, group, vis_band=band)[2]
+                if not torch.equal(counts[:, 0], sched):
+                    raise AssertionError(f"{label}: {name}'s visibility "
+                                         "instance did not fold what its "
+                                         "schedule folds")
+                folds = (f" clusters_folded={int(counts[:, 0].sum())} "
+                         f"plain_schedule={int(sched.sum())} (groups of "
+                         f"{group}, {part.ids.shape[0]} sampled tiles)")
+            (c_a, c_b), (v_a, v_b) = in_turns(
+                lambda: wrapper(*args, *extra),
+                lambda: wrapper(*args, *extra, vis_band=band), 3)
+            c_ms, v_ms = (c_a + c_b) / 2, (v_a + v_b) / 2
+            print(f"vis[{label}]: {name} tiles={sl.ids.shape[0]} "
+                  f"live_rays={int(live.sum())} "
+                  f"retired={int((~keep & live).sum())} "
+                  f"t_bit_identical_to_closest_below_floor={whole} "
+                  f"vs_plain_on_{part.ids.shape[0]}_tiles={vs_plain} "
+                  f"plain_ms={plain_ms:.1f}{folds} vis_ms={v_ms:.4f} "
+                  f"({v_a:.4f}, {v_b:.4f}) closest_ms={c_ms:.4f} "
+                  f"({c_a:.4f}, {c_b:.4f}; in turns closest, vis, vis, "
+                  f"closest) closest_over_vis={c_ms / v_ms:.3f}")
+            if not (whole and vs_plain):
+                raise AssertionError(f"{label}: {name}'s visibility instance "
+                                     "differs")
+            out[f"{name}_vis_ms"] = v_ms
+            out[f"{name}_closest_ms"] = c_ms
+        o, d, mask, cap = batch
+        kw = dict(fine_td=traversal.make_trace_data(scene, bvh.fine),
+                  mask=mask, tile_size=P, max_clusters=cfg.max_clusters,
+                  sort=True, resident_pack=pack, t_cap=cap)
+        hc = packets.trace_packets(o, d, pd, **kw)
+        hv = packets.trace_packets(o, d, pd, vis_band=band, **kw)
+        ln = cap - 2.0 * EPS_VISIBILITY
+        dc = (hc.t - ln).abs() <= EPS_VISIBILITY
+        dv = (hv.t - ln).abs() <= EPS_VISIBILITY
+        occluded = hv.t == -1.0
+        same = (torch.equal(dc, dv)
+                and torch.equal(hv.t[~occluded], hc.t[~occluded]))
+        print(f"vis[{label}]: trace_packets rays={mask.shape[0]} "
+              f"bright={int(mask.sum())} visible={int(dc.sum())} "
+              f"occluded_report={int(occluded.sum())} "
+              f"decisions_equal_to_closest_hit={same}")
+        if not same:
+            raise AssertionError(f"{label}: the visibility query's "
+                                 "decisions differ from the closest hit's")
+        return out
+
+    def bdpt_windows(label, scene, bvh, cam, cfg, prep, windows):
+        """Windows of cfg.spp BDPT samples with vis_dropout off and on, in
+        turns (off, on, on, off, ...) after a warm-up of each, every count
+        at 0 before them: the images must be bit-identical, finite and lit,
+        K1 alone may launch and no plain version may run. Mrays/s by the
+        bench's accounting, pixels x spp x (bounces + 1) / wall seconds.
+        -> K1's launches."""
+        cfgs = {"off": cfg, "on": dataclasses.replace(cfg, vis_dropout=True)}
+
+        def run(c):
+            return cpt.render_batch(scene, bvh, cam, c, base_key,
+                                    cpt.init_accum(c, device=dev), c.spp,
+                                    prep=prep)
+
+        imgs = {m: run(c) for m, c in cfgs.items()}
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        walls = {"off": [], "on": []}
+        for i in range(windows):
+            for m in (("off", "on") if i % 2 == 0 else ("on", "off")):
+                t0 = time.perf_counter()
+                st = run(cfgs[m])
+                torch.cuda.synchronize()
+                walls[m].append(time.perf_counter() - t0)
+                img = torch.stack(list(st.img), dim=1)
+                if i and not torch.equal(img, imgs[m]):
+                    raise AssertionError(f"{label}: windows of one seed "
+                                         "differ")
+                imgs[m] = img
+        launches, plain_calls = path_counts(label, kernels, "k1")
+        img = imgs["off"].cpu().numpy()
+        same = torch.equal(imgs["off"].view(torch.int32),
+                           imgs["on"].view(torch.int32))
+        finite = bool(np.isfinite(img).all())
+        rays = cfg.num_pixels * cfg.spp * (cfg.num_bounces + 1)
+        for m, ws in walls.items():
+            print(f"{label}: vis_dropout={m} {cfg.width}x{cfg.height} "
+                  f"spp={cfg.spp} windows={windows} "
+                  f"window_seconds={[round(w, 4) for w in ws]} "
+                  f"mrays_per_s={rays * windows / sum(ws) / 1e6:.3f} "
+                  f"window_mrays_per_s_min={rays / max(ws) / 1e6:.3f} "
+                  f"max={rays / min(ws) / 1e6:.3f}")
+        print(f"{label}: images_bit_identical={same} finite={finite} "
+              f"image_max={img.max():.4f} "
+              + " ".join(f"{n}_launches={v}" for n, v in launches.items())
+              + f" launches_per_sample="
+              f"{launches['k1'] / (2 * windows * cfg.spp):.2f} "
+              f"plain_calls={plain_calls}")
+        if not (same and finite and img.max() > 0):
+            raise AssertionError(f"{label}: images differ, or are not "
+                                 "finite and lit")
+        return launches["k1"]
+
     # ---- 4.-8. the render paths --------------------------------------------
     resident_src = "cudapathtracer_tpu/ops/pallas/dense_resident.py:999"
     paths = (
@@ -593,6 +792,34 @@ def main():
             launches, res))
         del scene, bvh, prep, trace_fn, window, batches
         torch.cuda.empty_cache()
+
+    # ---- 9. bdpt: the default integrator at the JAX bench's BDPT size ------
+    (scene, cfg, bvh, prep, cam, P, kern, trace_fn,
+     window) = setup("bdpt", 3, BDPT_SPP, size=BDPT_SIZE, integrator="bdpt")
+    if kern != "resident":
+        raise AssertionError(f"bdpt path took the {kern} route")
+    batches = record_batches(scene, trace_fn, cam, cfg, base_key)
+    R = cfg.num_pixels
+    sizes = {n: b[0].x.shape[0] for n, b in batches.items()}
+    if sizes != {"primary": R, "subpath": 2 * R, "connection": 4 * R} or \
+            batches["connection"][3] is None:
+        raise AssertionError(f"bdpt batches {sizes}: expected R, 2R and a "
+                             "capped 4R")
+    res = {}
+    for bname, batch in batches.items():
+        res[bname] = check_batch(f"bdpt/{bname}", "k1", batch, scene, prep,
+                                 cfg, P, None, full_plain=bname == "primary")
+    conn = dict(res["connection"])
+    conn["max_abs"] = max(r["max_abs"] for r in res.values())
+    vis_ms = vis_instances("bdpt/connection", batches["connection"], scene,
+                           prep, cfg, P, bvh)
+    trace_breakdown("bdpt", scene, trace_fn, cam, cfg, base_key)
+    launches = bdpt_windows("bdpt", scene, bvh, cam, cfg, prep,
+                            PATH_WINDOWS)
+    entry = kernel_entry("dense_resident/bdpt", "dense_resident.cu",
+                         resident_src, launches, conn)
+    entry.update(vis_ms)
+    entries.append(entry)
 
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -29,7 +29,8 @@
 // bound), and 1.93-1.95 ms on the primary batch (chip_smoke.py, PERF.md).
 // K1 now runs this kernel's code (gated_fold.cuh:gated_tile) in blocks of at
 // most 128 rays, so at P = 128 the two are one launch; both keep the plain
-// fold's result bit for bit.
+// fold's result bit for bit. Its visibility instance (vis_band > 0) is the
+// TPU kernel's vis_band mode (dense.py:79), gated_fold.cuh's note.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,18 +39,18 @@
 
 namespace {
 
-template <bool kCount>
+template <bool kCount, bool kVis>
 __global__ void dense_stream_kernel(
     const int32_t* __restrict__ ids, const int32_t* __restrict__ counts,
     const float* __restrict__ entries, const float* __restrict__ rays,
     const float* __restrict__ packed, const int32_t* __restrict__ tri,
     const float* __restrict__ boxes, float* __restrict__ t_out,
     int32_t* __restrict__ tri_out, long long* __restrict__ counts_out,
-    int M, int C, int K) {
+    int M, int C, int K, float vis_band) {
   // a slot is one cluster: F = 1
-  gfold::gated_tile<kCount>(ids, counts, entries, rays, packed, tri, boxes,
-                            t_out, tri_out, counts_out, M, blockDim.x, C, 1,
-                            K);
+  gfold::gated_tile<kCount, kVis>(ids, counts, entries, rays, packed, tri,
+                                  boxes, t_out, tri_out, counts_out, M,
+                                  blockDim.x, C, 1, K, vis_band);
 }
 
 }  // namespace
@@ -58,9 +59,13 @@ extern "C" int dense_stream_launch(
     const void* ids, const void* counts, const void* entries,
     const void* rays, const void* packed, const void* tri, const void* boxes,
     void* t_out, void* tri_out, void* counts_out, int Tl, int M, int P,
-    int C, int K, void* stream) {
-  auto kernel = counts_out ? &dense_stream_kernel<true>
-                           : &dense_stream_kernel<false>;
+    int C, int K, float vis_band, void* stream) {
+  // the instance per call: counting or timed, visibility or closest hit
+  const bool vis = vis_band > 0.0f;
+  auto kernel = counts_out ? (vis ? &dense_stream_kernel<true, true>
+                                  : &dense_stream_kernel<true, false>)
+                           : (vis ? &dense_stream_kernel<false, true>
+                                  : &dense_stream_kernel<false, false>);
   const size_t smem = gfold::shared_bytes(P, 1);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -72,6 +77,6 @@ extern "C" int dense_stream_launch(
       static_cast<const float*>(packed), static_cast<const int32_t*>(tri),
       static_cast<const float*>(boxes), static_cast<float*>(t_out),
       static_cast<int32_t*>(tri_out), static_cast<long long*>(counts_out),
-      M, C, K);
+      M, C, K, vis_band);
   return static_cast<int>(cudaGetLastError());
 }

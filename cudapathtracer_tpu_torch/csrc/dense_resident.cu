@@ -50,6 +50,12 @@
 // Counting instance (kCount, for measurements only; the timed instance is
 // compiled without it): gated_fold.cuh's columns, with column 0 the
 // clusters folded summed over the blocks of the tile that fold them.
+//
+// Visibility instance (kVis, launched where the caller's vis_band > 0:
+// BDPT's connection rays with vis_dropout): the TPU kernel's _vis_drop
+// (dense_resident.py:330-347), gated_fold.cuh's note. A ray whose t falls
+// below cap - vis_band retires at that member's merge, so it stops gating,
+// folding and holding its block's exit vote open.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,17 +67,18 @@ namespace {
 // rays per block at most (ops/kernels/dense_resident.py:K1_BLOCK_RAYS)
 constexpr int kBlockRays = 128;
 
-template <bool kCount>
+template <bool kCount, bool kVis>
 __global__ void dense_resident_kernel(
     const int32_t* __restrict__ ids, const int32_t* __restrict__ counts,
     const float* __restrict__ entries, const float* __restrict__ rays,
     const float* __restrict__ packed, const int32_t* __restrict__ tri,
     const float* __restrict__ boxes, float* __restrict__ t_out,
     int32_t* __restrict__ tri_out, long long* __restrict__ counts_out,
-    int M, int P, int C, int K) {
+    int M, int P, int C, int K, float vis_band) {
   // a slot is one cluster: F = 1
-  gfold::gated_tile<kCount>(ids, counts, entries, rays, packed, tri, boxes,
-                            t_out, tri_out, counts_out, M, P, C, 1, K);
+  gfold::gated_tile<kCount, kVis>(ids, counts, entries, rays, packed, tri,
+                                  boxes, t_out, tri_out, counts_out, M, P, C,
+                                  1, K, vis_band);
 }
 
 }  // namespace
@@ -80,12 +87,16 @@ extern "C" int dense_resident_launch(
     const void* ids, const void* counts, const void* entries,
     const void* rays, const void* packed, const void* tri, const void* boxes,
     void* t_out, void* tri_out, void* counts_out, int Tl, int M, int P,
-    int C, int K, void* stream) {
+    int C, int K, float vis_band, void* stream) {
   // blocks of B = min(kBlockRays, P) rays, halved until B divides P
   int B = kBlockRays < P ? kBlockRays : P;
   while (P % B != 0) B /= 2;
-  auto kernel = counts_out ? &dense_resident_kernel<true>
-                           : &dense_resident_kernel<false>;
+  // the instance per call: counting or timed, visibility or closest hit
+  const bool vis = vis_band > 0.0f;
+  auto kernel = counts_out ? (vis ? &dense_resident_kernel<true, true>
+                                  : &dense_resident_kernel<true, false>)
+                           : (vis ? &dense_resident_kernel<false, true>
+                                  : &dense_resident_kernel<false, false>);
   const size_t smem = gfold::shared_bytes(B, 1);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -98,6 +109,6 @@ extern "C" int dense_resident_launch(
       static_cast<const float*>(packed), static_cast<const int32_t*>(tri),
       static_cast<const float*>(boxes), static_cast<float*>(t_out),
       static_cast<int32_t*>(tri_out), static_cast<long long*>(counts_out),
-      M, P, C, K);
+      M, P, C, K, vis_band);
   return static_cast<int>(cudaGetLastError());
 }

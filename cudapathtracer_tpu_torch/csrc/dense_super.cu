@@ -33,7 +33,10 @@
 // On one H100 80GB HBM3 at a 700 W limit it takes 1.18 ms on the subdiv-5
 // bounce batch, where K1 takes 5.34 ms on the flat shortlists of the same
 // rays and this kernel took 6.12 before (8% of its operations bound), and
-// 0.66 ms on the primary batch (K1 1.04; chip_smoke.py, PERF.md).
+// 0.66 ms on the primary batch (K1 1.04; chip_smoke.py, PERF.md). Its
+// visibility instance (vis_band > 0) is _make_kernel_super's vis_band mode
+// (dense_resident.py:699-703), gated_fold.cuh's note: a ray that retires
+// inside a super gates again at -3e38 and passes no further member.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,17 +45,17 @@
 
 namespace {
 
-template <bool kCount>
+template <bool kCount, bool kVis>
 __global__ void dense_super_kernel(
     const int32_t* __restrict__ ids, const int32_t* __restrict__ counts,
     const float* __restrict__ entries, const float* __restrict__ rays,
     const float* __restrict__ packed, const int32_t* __restrict__ tri,
     const float* __restrict__ boxes, float* __restrict__ t_out,
     int32_t* __restrict__ tri_out, long long* __restrict__ counts_out,
-    int M, int C, int F, int K) {
-  gfold::gated_tile<kCount>(ids, counts, entries, rays, packed, tri, boxes,
-                            t_out, tri_out, counts_out, M, blockDim.x, C, F,
-                            K);
+    int M, int C, int F, int K, float vis_band) {
+  gfold::gated_tile<kCount, kVis>(ids, counts, entries, rays, packed, tri,
+                                  boxes, t_out, tri_out, counts_out, M,
+                                  blockDim.x, C, F, K, vis_band);
 }
 
 }  // namespace
@@ -61,10 +64,14 @@ extern "C" int dense_super_launch(
     const void* ids, const void* counts, const void* entries,
     const void* rays, const void* packed, const void* tri, const void* boxes,
     void* t_out, void* tri_out, void* counts_out, int Tl, int M, int P,
-    int C, int F, int K, void* stream) {
+    int C, int F, int K, float vis_band, void* stream) {
   if (F < 1 || F > 32) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = counts_out ? &dense_super_kernel<true>
-                           : &dense_super_kernel<false>;
+  // the instance per call: counting or timed, visibility or closest hit
+  const bool vis = vis_band > 0.0f;
+  auto kernel = counts_out ? (vis ? &dense_super_kernel<true, true>
+                                  : &dense_super_kernel<true, false>)
+                           : (vis ? &dense_super_kernel<false, true>
+                                  : &dense_super_kernel<false, false>);
   const size_t smem = gfold::shared_bytes(P, F);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -76,6 +83,6 @@ extern "C" int dense_super_launch(
       static_cast<const float*>(packed), static_cast<const int32_t*>(tri),
       static_cast<const float*>(boxes), static_cast<float*>(t_out),
       static_cast<int32_t*>(tri_out), static_cast<long long*>(counts_out),
-      M, C, F, K);
+      M, C, F, K, vis_band);
   return static_cast<int>(cudaGetLastError());
 }

@@ -61,6 +61,18 @@
 // to whole warps that skip their tests and wait at the keys' barrier (46% of
 // the cycles at C = P = 256); blocks of 128 rays spread it over the rounds.
 //
+// Visibility instance (kVis, selected per call where vis_band > 0; the
+// closest-hit instance is compiled without it): the JAX package's _vis_drop
+// (ops/pallas/dense_resident.py:330-347). Each ray holds the floor
+// lo = cap - vis_band, cap from row 7 of its ray block. After each member's
+// merge, a ray that folded the member and whose t fell below lo is occluded
+// whatever the rest of its shortlist holds: it sets t = -3e38, which
+// retires it, since its gates (tmin <= t) and its exit vote (t >= entry)
+// fail from then on. Its id stays the occluder found then, which depends on
+// the schedule; on output a t below lo (a retired ray, or one whose init was
+// already below its floor) is -3e38, so the t written is the same for every
+// schedule: -3e38 exactly where the closest hit lies below the floor.
+//
 // Counting instance (kCount, for measurements only; the timed instance is
 // compiled without it): per tile, into counts_out (Tl, kCountCols), which
 // the caller zeroes:
@@ -231,7 +243,7 @@ __device__ __forceinline__ Part block_part(int P) {
 }
 
 // One block of B = blockDim.x rays of a tile of P.
-template <bool kCount>
+template <bool kCount, bool kVis>
 __device__ __forceinline__ void gated_tile(
     const int32_t* __restrict__ ids,       // (Tl, M) shortlist slot ids
     const int32_t* __restrict__ counts,    // (Tl,) valid slots per tile
@@ -243,7 +255,7 @@ __device__ __forceinline__ void gated_tile(
     float* __restrict__ t_out,             // (Tl, P)
     int32_t* __restrict__ tri_out,         // (Tl, P)
     long long* __restrict__ counts_out,    // (Tl, kCountCols) or null
-    int M, int P, int C, int F, int K) {
+    int M, int P, int C, int F, int K, float vis_band) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int B = blockDim.x;
   const int lane = threadIdx.x;
@@ -265,6 +277,9 @@ __device__ __forceinline__ void gated_tile(
   float t;
   int32_t best = -1;
   const bwfold::Ray r = bwfold::load_ray(rays, tile, P, part.r0 + lane, &t);
+  // the visibility floor: the ray is occluded once its t is below it
+  const float lo =
+      kVis ? rays[tile * 8 * P + 7 * P + part.r0 + lane] - vis_band : 0.0f;
   key[lane] = fold_key(t, best);
   if (lane < 3) {
     n_list[lane] = 0;
@@ -353,10 +368,12 @@ __device__ __forceinline__ void gated_tile(
         t = key_t(k);
         best = key_id(k);
         refold = true;
+        if (kVis && t < lo) t = bwfold::kMaskedInit;   // occluded: retire
       }
       if (kCount) folded += 1;
     }
   }
+  if (kVis && t < lo) t = bwfold::kMaskedInit;
   t_out[tile * P + part.r0 + lane] = t;
   tri_out[tile * P + part.r0 + lane] = best;
   if (kCount) {

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.constants import EPS_PARALLEL, MAX_FLOAT
-from .vecmath import Vec3, cross, dot, fma, fma3
+from .vecmath import Vec3, cross, dot, fma, fma3, sqrt
 
 
 def ray_aabb(o: Vec3, inv_d: Vec3, lo: Vec3, hi: Vec3, t_best):
@@ -96,7 +96,7 @@ def ray_sphere(o: Vec3, d: Vec3, center: Vec3, radius):
     c = dot(oc, oc) - radius * radius
     disc = fma(b, b, -(4.0 * a * c))
     miss = disc < 0.0
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    sq = sqrt(torch.clamp(disc, min=0.0))
     inv2a = 0.5 / a
     t0 = (-b - sq) * inv2a
     t1 = (-b + sq) * inv2a

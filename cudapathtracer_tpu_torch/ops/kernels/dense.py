@@ -14,7 +14,7 @@ gate are folded, each thread testing one triangle against them.
 * ``dense_intersect``, the wrapper: K2 on CUDA tensors (raising if the build
   or the launch fails), the plain version only for tensors on the CPU.
   ``launches`` counts kernel launches. ``counts_out`` selects the counting
-  instance, as for K1.
+  instance and ``vis_band`` the visibility instance, as for K1.
 """
 
 from __future__ import annotations
@@ -34,10 +34,12 @@ from .dense_resident import (
 SOURCE = os.path.join(PACKAGE_DIR, "csrc", "dense.cu")
 
 
-def dense_intersect_plain(ids, counts, entries, rays, packed, tri, boxes):
+def dense_intersect_plain(ids, counts, entries, rays, packed, tri, boxes,
+                          vis_band: float = 0.0):
     """K2's plain PyTorch version: K1's plain fold, counted."""
     dense_intersect_plain.calls += 1
-    return plain_fold(ids, counts, entries, rays, packed, tri, boxes)
+    return plain_fold(ids, counts, entries, rays, packed, tri, boxes,
+                      vis_band)
 
 
 dense_intersect_plain.calls = 0
@@ -56,15 +58,16 @@ def build():
 
 
 def dense_intersect(ids, counts, entries, rays, packed, tri, boxes,
-                    counts_out=None):
-    """K2 on CUDA tensors (its counting instance given ``counts_out``); the
-    plain version for tensors on the CPU."""
+                    counts_out=None, vis_band: float = 0.0):
+    """K2 on CUDA tensors (its counting instance given ``counts_out``, its
+    visibility instance given ``vis_band`` > 0); the plain version for
+    tensors on the CPU."""
     if is_cpu(rays, counts_out):
         return dense_intersect_plain(ids, counts, entries, rays, packed, tri,
-                                     boxes)
+                                     boxes, vis_band)
     out = launch_fold(_load_kernel, "dense", ids, counts, entries, rays,
                       packed, tri, boxes, extra=(packed.shape[0] - 1,),
-                      counts_out=counts_out)
+                      counts_out=counts_out, vis_band=vis_band)
     dense_intersect.launches += 1
     return out
 

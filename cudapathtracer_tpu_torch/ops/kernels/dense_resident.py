@@ -40,6 +40,17 @@ ids (Tl, M) i32 cluster ids ascending by entry, with K past each count;
 counts (Tl,) i32; entries (Tl, M) f32 (+inf past the count); rays (Tl, 8, P)
 f32, rows o.xyz, d.xyz, lane mask, search cap. Output: t (Tl, P) f32 and
 tri (Tl, P) i32 (-1 where nothing beat the cap; masked lanes hold -3e38).
+
+Every kernel and plain version takes ``vis_band`` (a float, 0 by default).
+Above 0 the query asks for visibility only (BDPT's connection rays, the JAX
+package's ``_vis_drop``, dense_resident.py:330-347): a ray whose closest
+hit lies below its floor ``cap - vis_band`` is occluded whatever else its
+shortlist holds, so the kernels retire it as soon as a fold takes its t
+below the floor (``csrc/gated_fold.cuh``). Its t becomes -3e38, and its id
+is the occluder found then, which depends on the schedule. The t that comes
+out is the same for every schedule: -3e38 exactly on the lanes whose
+closest hit lies below the floor, the closest hit elsewhere. The plain
+versions fold to the closest hit and then set t to -3e38 there.
 """
 
 from __future__ import annotations
@@ -142,15 +153,16 @@ def _check_inputs(ids, counts, entries, rays, packed, tri, boxes):
 
 
 def plain_fold(ids, counts, entries, rays, packed, tri, boxes,
-               chunk_elems: int = 1 << 24):
+               vis_band: float = 0.0, chunk_elems: int = 1 << 24):
     """The plain fold, uncounted: fold every slot s < count of every tile,
     ungated, in blocks of tiles of at most ``chunk_elems`` (ray, triangle)
     pairs. The fold keeps the lexicographic minimum of (t, id) from the
     init (cap, -1), which is what the kernel's sequential
-    ``ts < t or (ts == t and id < best)`` computes. ``entries`` and
+    ``ts < t or (ts == t and id < best)`` computes; with ``vis_band`` > 0,
+    t is then -3e38 where it lies below ``cap - vis_band``. ``entries`` and
     ``boxes`` only steer the kernel's skipping, so they are unused here."""
     return _fold(ids, counts, entries, rays, packed, tri, boxes,
-                 chunk_elems)[:2]
+                 chunk_elems, vis_band=vis_band)[:2]
 
 
 def _init(rays):
@@ -212,12 +224,22 @@ def box_gate(bx, o, inv, t):
     return (tmin <= tmax) & (tmax >= 0) & (tmin <= t)
 
 
+def _retire(t, rays, vis_band):
+    """Visibility mode: t -> -3e38 where it lies below the floor
+    ``cap - vis_band`` (identity for vis_band = 0)."""
+    if vis_band <= 0.0:
+        return t
+    return torch.where(t < rays[:, 7] - vis_band, MASKED_T_INIT, t)
+
+
 def _fold(ids, counts, entries, rays, packed, tri, boxes, chunk_elems,
-          group=None):
+          group=None, vis_band=0.0):
     """plain_fold, or with ``group`` the gated schedule of ``fold_schedule``
     -> (t, id, folds per tile or None)."""
     Tl, M, P, C = _check_inputs(ids, counts, entries, rays, packed, tri,
                                 boxes)
+    if vis_band < 0.0:
+        raise ValueError(f"vis_band {vis_band} must not be negative")
     t_best, tri_best = _init(rays)
     folds = None
     if group is not None:
@@ -253,31 +275,41 @@ def _fold(ids, counts, entries, rays, packed, tri, boxes, chunk_elems,
                 folds[tiles] += gate.reshape(-1, P // group, group).any(
                     dim=2).sum(dim=1)
                 better &= gate
-            t_best[tiles] = torch.where(better, t_new, tb)
+            t_new = torch.where(better, t_new, tb)
+            if group is not None and vis_band > 0.0:
+                # a ray that folded the slot retires once its t is below
+                # the floor: it gates and votes no more
+                t_new = torch.where(gate, _retire(t_new, rays[tiles],
+                                                  vis_band), t_new)
+            t_best[tiles] = t_new
             tri_best[tiles] = torch.where(better, id_new, ib)
-    return t_best, tri_best, folds
+    return _retire(t_best, rays, vis_band), tri_best, folds
 
 
 def fold_schedule(ids, counts, entries, rays, packed, tri, boxes, group,
-                  chunk_elems: int = 1 << 24):
+                  vis_band: float = 0.0, chunk_elems: int = 1 << 24):
     """A plain count of the kernels' gated schedule, for groups of ``group``
     consecutive rays of each tile (P: K2's block per tile; ``k1_group(P)``:
     K1's blocks of at most K1_BLOCK_RAYS rays). Slot by slot, a group ends
     at the first slot whose entry no live ray of it reaches (with its t
     before the slot); otherwise each of its rays folds the slot's cluster if
     it passes the cluster's box gate at that t, and the group folds the
-    cluster if any of its rays does. -> (t, id, clusters folded per tile
-    summed over the groups (Tl,) int64). The gate skips only clusters that
-    cannot improve a hit, so (t, id) is ``plain_fold``'s."""
+    cluster if any of its rays does. With ``vis_band`` > 0 a ray that folds
+    the slot and ends below its floor retires (t = -3e38), as in the
+    kernels. -> (t, id, clusters folded per tile summed over the groups
+    (Tl,) int64). The gate skips only clusters that cannot improve a hit,
+    so t is ``plain_fold``'s, and so is the id of every ray that did not
+    retire."""
     return _fold(ids, counts, entries, rays, packed, tri, boxes, chunk_elems,
-                 group)
+                 group, vis_band)
 
 
 def dense_intersect_resident_plain(ids, counts, entries, rays, packed, tri,
-                                   boxes):
+                                   boxes, vis_band: float = 0.0):
     """K1's plain PyTorch version (``plain_fold``), counted."""
     dense_intersect_resident_plain.calls += 1
-    return plain_fold(ids, counts, entries, rays, packed, tri, boxes)
+    return plain_fold(ids, counts, entries, rays, packed, tri, boxes,
+                      vis_band)
 
 
 dense_intersect_resident_plain.calls = 0
@@ -304,27 +336,30 @@ def load_fold_kernel(lib_name: str, source: str, symbol: str, n_ints: int,
                      flags=(), headers=HEADERS):
     """Build ``source`` (which includes ``headers``; NVCC_FLAGS and
     ``flags``) into ``build/lib_name`` and bind ``symbol(10 pointers, n_ints
-    ints, stream) -> cudaError_t``."""
+    ints, the vis band (float), stream) -> cudaError_t``."""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     lib = build_and_load(lib_name, [source], [nvcc] + NVCC_FLAGS + list(flags),
                          headers=headers)
     fn = getattr(lib, symbol)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * n_ints
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_void_p])
     return fn
 
 
 def launch_fold(load, name, ids, counts, entries, rays, packed, tri, boxes,
-                extra=(), counts_out=None):
+                extra=(), counts_out=None, vis_band=0.0):
     """Check the inputs, launch ``load()``'s kernel with (pointers, Tl, M,
-    P, C, *extra) on the current stream and return (t, tri); raise if the
-    launch fails. With ``counts_out`` (Tl, COUNT_COLS) int64, zero it and
-    launch the counting instance."""
+    P, C, *extra, vis_band) on the current stream and return (t, tri);
+    raise if the launch fails. With ``counts_out`` (Tl, COUNT_COLS) int64,
+    zero it and launch the counting instance; with ``vis_band`` > 0 the
+    kernel's visibility instance runs."""
     Tl, M, P, C = _check_inputs(ids, counts, entries, rays, packed, tri,
                                 boxes)
     if P % 32 != 0 or not 0 < P <= 1024:
         raise ValueError(f"tile size {P} must be a multiple of 32 <= 1024")
+    if vis_band < 0.0:
+        raise ValueError(f"vis_band {vis_band} must not be negative")
     if counts_out is not None:
         if (tuple(counts_out.shape) != (Tl, COUNT_COLS)
                 or counts_out.dtype != torch.int64
@@ -344,7 +379,7 @@ def launch_fold(load, name, ids, counts, entries, rays, packed, tri, boxes,
                  rays.data_ptr(), packed.data_ptr(), tri.data_ptr(),
                  boxes.data_ptr(), t.data_ptr(), tri_out.data_ptr(),
                  None if counts_out is None else counts_out.data_ptr(),
-                 Tl, M, P, C, *extra, stream)
+                 Tl, M, P, C, *extra, float(vis_band), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return t, tri_out
@@ -376,15 +411,16 @@ def build():
 
 
 def dense_intersect_resident(ids, counts, entries, rays, packed, tri, boxes,
-                             counts_out=None):
-    """K1 on CUDA tensors (its counting instance given ``counts_out``); the
-    plain version for tensors on the CPU."""
+                             counts_out=None, vis_band: float = 0.0):
+    """K1 on CUDA tensors (its counting instance given ``counts_out``, its
+    visibility instance given ``vis_band`` > 0); the plain version for
+    tensors on the CPU."""
     if is_cpu(rays, counts_out):
         return dense_intersect_resident_plain(ids, counts, entries, rays,
-                                              packed, tri, boxes)
+                                              packed, tri, boxes, vis_band)
     out = launch_fold(_load_kernel, "dense_resident", ids, counts, entries,
                       rays, packed, tri, boxes, extra=(packed.shape[0] - 1,),
-                      counts_out=counts_out)
+                      counts_out=counts_out, vis_band=vis_band)
     dense_intersect_resident.launches += 1
     return out
 

@@ -19,7 +19,8 @@ entries are the supers' entry distances, ascending. Rays, scene layout
 * ``dense_intersect_super``, the wrapper: K3 on CUDA tensors (raising if the
   build or the launch fails), the plain version only for tensors on the
   CPU. ``launches`` counts kernel launches. ``counts_out`` selects the
-  counting instance, as for K1; its first column counts members folded.
+  counting instance, as for K1, and its first column counts members folded;
+  ``vis_band`` selects the visibility instance, as for K1.
   The kernel keeps a super's member gates in a 32-bit mask: F <= 32.
 """
 
@@ -57,13 +58,14 @@ def expand_supers(ids, counts, entries, F: int, K: int):
 
 
 def dense_intersect_super_plain(ids, counts, entries, rays, packed, tri,
-                                boxes, F: int):
+                                boxes, F: int, vis_band: float = 0.0):
     """K3's plain PyTorch version: K1's plain fold over every member of
     every listed super."""
     dense_intersect_super_plain.calls += 1
     m_ids, m_counts, m_entries = expand_supers(ids, counts, entries, F,
                                                packed.shape[0] - 1)
-    return plain_fold(m_ids, m_counts, m_entries, rays, packed, tri, boxes)
+    return plain_fold(m_ids, m_counts, m_entries, rays, packed, tri, boxes,
+                      vis_band)
 
 
 dense_intersect_super_plain.calls = 0
@@ -82,20 +84,21 @@ def build():
 
 
 def dense_intersect_super(ids, counts, entries, rays, packed, tri, boxes,
-                          F: int, counts_out=None):
-    """K3 on CUDA tensors (its counting instance given ``counts_out``); the
-    plain version for tensors on the CPU."""
+                          F: int, counts_out=None, vis_band: float = 0.0):
+    """K3 on CUDA tensors (its counting instance given ``counts_out``, its
+    visibility instance given ``vis_band`` > 0); the plain version for
+    tensors on the CPU."""
     if F < 1:
         raise ValueError(f"super_factor {F} must be at least 1")
     if is_cpu(rays, counts_out):
         return dense_intersect_super_plain(ids, counts, entries, rays,
-                                           packed, tri, boxes, F)
+                                           packed, tri, boxes, F, vis_band)
     if F > 32:
         raise ValueError(f"super_factor {F}: the kernel takes at most 32")
     out = launch_fold(_load_kernel, "dense_super", ids, counts, entries,
                       rays, packed, tri, boxes,
                       extra=(int(F), packed.shape[0] - 1),
-                      counts_out=counts_out)
+                      counts_out=counts_out, vis_band=vis_band)
     dense_intersect_super.launches += 1
     return out
 

@@ -19,7 +19,10 @@ one-round path:
    the fine BVH.
 
 The hit equals the brute-force oracle's for any grouping of rays into tiles,
-so sort order among equal keys changes nothing.
+so sort order among equal keys changes nothing. A caller's per-ray cap
+(``t_cap``) reports hits at or beyond it as misses, and ``vis_band`` turns
+on the kernels' visibility instance (BDPT's connection rays): the JAX
+package's capped and visibility-only queries (packets.py:278-298).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from .kernels.dense_resident import (
     resident_fits,
 )
 from .kernels.dense_super import dense_intersect_super
-from .traversal import Hit, TraceData, trace, tri_blocks
+from .traversal import Hit, TraceData, apply_t_cap, trace, tri_blocks
 from .vecmath import Vec3
 
 # the JAX package's auto cull stays flat up to this many clusters
@@ -223,13 +226,14 @@ def _super_boxes(pd: PacketData, F: int):
 def build_shortlists(o: Vec3, d: Vec3, mask, pd: PacketData,
                      tile_size: int, max_clusters: int,
                      super_factor: int | None = None,
-                     super_list: int = 255) -> Shortlists:
+                     super_list: int = 255, t_cap=None) -> Shortlists:
     """Tile the R rays in order (P per tile, padded), cull the clusters
     against each tile's frustum and keep the M nearest, ascending. With
     ``super_factor`` F, cull the superclusters of F clusters instead and
     keep M = min(S, super_list, max_clusters // F) of them, the sentinel S
     past each count (the JAX package's super shortlist,
-    packets.py:558-596)."""
+    packets.py:558-596). A caller's cap ``t_cap`` (R,) tightens each ray's
+    search cap (row 7), padded with +inf (packets.py:736-741)."""
     R = o.x.shape[0]
     dev = o.x.device
     K = pd.num_clusters
@@ -304,6 +308,11 @@ def build_shortlists(o: Vec3, d: Vec3, mask, pd: PacketData,
         torch.minimum(axis_exit(ox, dx, slo.x, shi.x),
                       axis_exit(oy, dy, slo.y, shi.y)),
         axis_exit(oz, dz, slo.z, shi.z)), min=0.0) * 1.0001 + 1e-4
+    if t_cap is not None:
+        # the caller's cap: the fold never finds t >= its init, so hits at
+        # or beyond the cap come back as misses
+        cap_row = torch.minimum(cap_row,
+                                padv(t_cap, torch.inf).reshape(Tl, P))
     rays = torch.stack([ox, oy, oz, dx, dy, dz, m.to(torch.float32),
                         cap_row], dim=1).contiguous()     # (Tl, 8, P)
     return Shortlists(ids, counts, entries, rays, U)
@@ -314,7 +323,8 @@ def trace_packets(o: Vec3, d: Vec3, pd: PacketData,
                   tile_size: int = 128, max_clusters: int = 32,
                   sort: bool = False, two_level: bool | str | None = None,
                   super_factor: int = 8, super_list: int = 255,
-                  resident_pack=None) -> Hit:
+                  resident_pack=None, t_cap=None,
+                  vis_band: float = 0.0) -> Hit:
     """Closest hit for R rays through tile packets; the semantics of
     ``traversal.trace``: closest triangle with 0 < t, MAX_FLOAT/-1 on miss,
     exact-t ties to the lower id. ``fine_td`` enables the overflow
@@ -322,22 +332,39 @@ def trace_packets(o: Vec3, d: Vec3, pd: PacketData,
     candidate. ``two_level``, ``super_factor`` and ``super_list`` choose
     the cull and kernel as in the JAX package (``route``).
     ``resident_pack``: ``pack_clusters(pd)``, precomputed once per scene by
-    the renderer; all three kernels read it."""
+    the renderer; all three kernels read it.
+
+    ``t_cap``: an optional (R,) float32 per-ray cap; hits at or beyond it
+    report as the miss (MAX_FLOAT, -1), hits below it are exact.
+    ``vis_band`` > 0 (which needs ``t_cap``) marks a visibility-only query:
+    a ray whose closest hit lies below ``t_cap - vis_band`` is occluded and
+    reports t = -1.0 with an occluder's id (not necessarily the closest);
+    every other ray reports the capped closest hit. BDPT's decision
+    |t - len| <= eps is then the closest-hit query's for every ray
+    (packets.py:286-298)."""
     R = o.x.shape[0]
     dev = o.x.device
+    if vis_band > 0.0 and t_cap is None:
+        raise ValueError("vis_band derives the occlusion floor from the "
+                         "per-ray cap: pass t_cap")
     if mask is None:
         mask = torch.ones(R, dtype=torch.bool, device=dev)
+    if t_cap is not None:
+        t_cap = torch.broadcast_to(torch.as_tensor(
+            t_cap, dtype=torch.float32, device=dev), (R,))
     F = int(super_factor)
     kernel = route(pd.num_clusters, pd.cluster_size, two_level, F)
 
     if sort:
+        # the cap is a per-ray column: it travels with the rays
         perm = sort_rays(o, d, mask, pd)
         h = trace_packets(
             Vec3(o.x[perm], o.y[perm], o.z[perm]),
             Vec3(d.x[perm], d.y[perm], d.z[perm]), pd, fine_td=fine_td,
             mask=mask[perm], tile_size=tile_size, max_clusters=max_clusters,
             sort=False, two_level=two_level, super_factor=F,
-            super_list=super_list, resident_pack=resident_pack)
+            super_list=super_list, resident_pack=resident_pack,
+            t_cap=None if t_cap is None else t_cap[perm], vis_band=vis_band)
         t = torch.empty_like(h.t)
         tri = torch.empty_like(h.tri)
         t[perm] = h.t
@@ -346,20 +373,23 @@ def trace_packets(o: Vec3, d: Vec3, pd: PacketData,
 
     sl = build_shortlists(o, d, mask, pd, tile_size, max_clusters,
                           super_factor=F if kernel == "super" else None,
-                          super_list=super_list)
+                          super_list=super_list, t_cap=t_cap)
     pack = resident_pack if resident_pack is not None else pack_clusters(pd)
     args = (sl.ids, sl.counts, sl.entries, sl.rays, *pack)
     if kernel == "super":
-        t_best, tri_best = dense_intersect_super(*args, F)
+        t_best, tri_best = dense_intersect_super(*args, F, vis_band=vis_band)
     elif kernel == "stream":
-        t_best, tri_best = dense_intersect(*args)
+        t_best, tri_best = dense_intersect(*args, vis_band=vis_band)
     else:
-        t_best, tri_best = dense_intersect_resident(*args)
-    return _finish(o, d, t_best, tri_best, mask, sl.U, fine_td, R)
+        t_best, tri_best = dense_intersect_resident(*args, vis_band=vis_band)
+    return _finish(o, d, t_best, tri_best, mask, sl.U, fine_td, R, t_cap,
+                   vis_band > 0.0)
 
 
-def _finish(o, d, t_best, tri_best, mask, U, fine_td, R):
-    """Trim padding, apply the lane mask and the fallback."""
+def _finish(o, d, t_best, tri_best, mask, U, fine_td, R, t_cap=None,
+            vis=False):
+    """Trim padding, apply the lane mask, the fallback and the caller's cap,
+    in the JAX package's order (packets.py:839-885)."""
     Tl, P = t_best.shape
     t_flat = t_best.reshape(-1)[:R]
     tri_flat = tri_best.reshape(-1)[:R]
@@ -368,12 +398,23 @@ def _finish(o, d, t_best, tri_best, mask, U, fine_td, R):
     # rays whose fold never beat the search-cap init carry t == cap with
     # tri == -1: restore the canonical miss sentinel
     t_flat = torch.where(tri_flat < 0, MAX_FLOAT, t_flat)
+    if vis:
+        # rays the kernel retired as occluded carry -3e38: report t = -1.0
+        # (|-1 - len| > eps for any len >= 0). Before the fallback test: a
+        # retired ray's decision is final, it never needs the fallback
+        t_flat = torch.where(mask & (t_flat < -1.0e38), -1.0, t_flat)
     u_ray = torch.broadcast_to(U[:, None], (Tl, P)).reshape(-1)[:R]
     # >= (not >): a hit whose t EQUALS a dropped cluster's entry may tie a
-    # lower-id triangle in that cluster
-    need_fb = mask & (t_flat >= u_ray)
+    # lower-id triangle in that cluster. With a cap, min(t, cap): a dropped
+    # cluster at or beyond the cap holds only hits reported as misses
+    t_eff = t_flat if t_cap is None else torch.minimum(t_flat, t_cap)
+    need_fb = mask & (t_eff >= u_ray)
     if fine_td is not None and bool(need_fb.any()):
         fb = trace(o, d, fine_td, mask=need_fb)
         t_flat = torch.where(need_fb, fb.t, t_flat)
         tri_flat = torch.where(need_fb, fb.tri, tri_flat)
+    if t_cap is not None:
+        # after the fallback, whose hits are uncapped
+        hit = apply_t_cap(Hit(tri=tri_flat, t=t_flat), t_cap)
+        tri_flat, t_flat = hit.tri, hit.t
     return Hit(tri=tri_flat, t=t_flat)

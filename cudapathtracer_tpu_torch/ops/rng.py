@@ -102,6 +102,8 @@ class SiteGroups:
     """Group ids for uniform_sites (spaced by the 1024-bounce packing)."""
 
     PT_BOUNCE = 1      # rows: choice, bsdf_u1, bsdf_u2, pick, light_u, light_v
+    BDPT = 2           # rows: pick, light_u, light_v, dir_u1, dir_u2,
+    #                    cam_u1, cam_u2
 
 
 class Sites:

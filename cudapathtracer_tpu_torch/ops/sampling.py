@@ -1,11 +1,12 @@
 """Direction and light-point sampling with the reference's estimators.
 
-Counterpart of the PT+NEE part of ``cudapathtracer_tpu/ops/sampling.py``,
-quirks included (SURVEY.md §7), with the fused multiply-adds XLA forms
-for them (ops/vecmath.py): the tangent frame is NOT normalized
-(kernel.cu:44-54), the cosine hemisphere maps r = sqrt(u1),
-y = sqrt(1 - u1) (kernel.cu:78-99), and triangle points fold u + v > 1 by
-mirroring (kernel.cu:254-258).
+Counterpart of ``cudapathtracer_tpu/ops/sampling.py`` (all but its
+``pick_light``, which ops/shading.py:pick_light_slot replaces), quirks
+included (SURVEY.md §7), with the fused multiply-adds XLA forms for them
+(ops/vecmath.py): the tangent frame is NOT normalized (kernel.cu:44-54),
+the uniform hemisphere takes y = u1 (kernel.cu:60-77), the cosine
+hemisphere maps r = sqrt(u1), y = sqrt(1 - u1) (kernel.cu:78-99), and
+triangle points fold u + v > 1 by mirroring (kernel.cu:254-258).
 """
 
 from __future__ import annotations
@@ -13,8 +14,8 @@ from __future__ import annotations
 import torch
 
 from ..utils.constants import PI_REF
-from .vecmath import Vec3, cross, dot, fma3, gather, length, normalized, \
-    take_clip, where
+from .vecmath import Vec3, cos, cross, dot, fma, fma3, gather, length, \
+    normalized, sin, sqrt, take_clip, where
 
 
 def tangent_frame(n: Vec3, orthonormal: bool = False):
@@ -37,13 +38,21 @@ def _frame_dir(n: Vec3, local: Vec3, orthonormal: bool) -> Vec3:
     return normalized(d)
 
 
+def uniform_hemisphere(n: Vec3, u1, u2, orthonormal: bool = False) -> Vec3:
+    """randRay (kernel.cu:60-77): u1 is the cosine itself (uniform in cos,
+    not in solid angle). Nominal pdf 1/(2*pi)."""
+    r = sqrt(fma(-u1, u1, torch.ones_like(u1)))
+    phi = 2.0 * PI_REF * u2
+    local = Vec3(r * cos(phi), u1, r * sin(phi))
+    return _frame_dir(n, local, orthonormal)
+
+
 def cosine_hemisphere(n: Vec3, u1, u2, orthonormal: bool = False) -> Vec3:
     """cosineWeightedRay (kernel.cu:78-99). Nominal pdf cos(theta)/pi."""
-    r = torch.sqrt(u1)
+    r = sqrt(u1)
     theta = 2.0 * PI_REF * u2
-    local = Vec3(r * torch.cos(theta),
-                 torch.sqrt(torch.clamp(1.0 - u1, min=0.0)),
-                 r * torch.sin(theta))
+    local = Vec3(r * cos(theta), sqrt(torch.clamp(1.0 - u1, min=0.0)),
+                 r * sin(theta))
     return _frame_dir(n, local, orthonormal)
 
 

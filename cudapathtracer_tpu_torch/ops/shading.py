@@ -25,9 +25,10 @@ class ShadeTable(NamedTuple):
 
 
 class LightTable(NamedTuple):
-    """(L+1, 12) per-light rows [v0.xyz, a1.xyz, a2.xyz, n.xyz] with
-    a1 = v1-v0, a2 = v2-v0. Row L is the no-match fallback, scene triangle 0
-    (the reference's fall-through, kernel.cu:232)."""
+    """(L+1, 15) per-light rows [v0.xyz, a1.xyz, a2.xyz, n.xyz,
+    emission.xyz] with a1 = v1-v0, a2 = v2-v0. Row L is the no-match
+    fallback, scene triangle 0 (the reference's fall-through,
+    kernel.cu:232)."""
 
     light_rows: torch.Tensor
 
@@ -61,16 +62,20 @@ def make_light_table(scene) -> LightTable:
     v1 = gather(scene.verts, take_clip(scene.tri_v1, idx))
     v2 = gather(scene.verts, take_clip(scene.tri_v2, idx))
     n = gather(scene.tri_norm, idx)
-    rows = torch.stack([*v0, *(v1 - v0), *(v2 - v0), *n], dim=1)
+    emi = gather(scene.mat_emission, take_clip(scene.tri_mat, idx))
+    rows = torch.stack([*v0, *(v1 - v0), *(v2 - v0), *n, *emi], dim=1)
     return LightTable(light_rows=rows)
 
 
-def light_lookup(table: LightTable, slot):
-    """slot: (R,) in [0, L], clamped. -> (v0, a1, a2, normal) of the picked
-    lights."""
+def light_lookup(table: LightTable, slot, with_emission: bool = False):
+    """slot: (R,) in [0, L], clamped. -> (v0, a1, a2, normal[, emission])
+    of the picked lights."""
     r = take_clip(table.light_rows, slot)
-    return (Vec3(r[:, 0], r[:, 1], r[:, 2]), Vec3(r[:, 3], r[:, 4], r[:, 5]),
-            Vec3(r[:, 6], r[:, 7], r[:, 8]), Vec3(r[:, 9], r[:, 10], r[:, 11]))
+    out = (Vec3(r[:, 0], r[:, 1], r[:, 2]), Vec3(r[:, 3], r[:, 4], r[:, 5]),
+           Vec3(r[:, 6], r[:, 7], r[:, 8]), Vec3(r[:, 9], r[:, 10], r[:, 11]))
+    if with_emission:
+        return out + (Vec3(r[:, 12], r[:, 13], r[:, 14]),)
+    return out
 
 
 def make_sphere_table(scene) -> SphereTable:

@@ -74,7 +74,10 @@ def fma(a, b, c):
 
     The product is exact in float64; the sum is formed in float64 rounded to
     odd (a TwoSum error term moves an inexact even result to its odd
-    neighbour), which makes the final rounding to float32 the correct one."""
+    neighbour), which makes the final rounding to float32 the correct one.
+    A Python number ``b`` is taken as float32, as JAX takes it."""
+    if not torch.is_tensor(b):
+        b = torch.tensor(b, dtype=torch.float32, device=a.device)
     p = a.double() * b.double()
     c64 = c.double()
     s = p + c64
@@ -116,8 +119,28 @@ def rsqrt(x):
     return (1.0 / torch.sqrt(x.double())).float()
 
 
+def sqrt(x):
+    """sqrt of a float32 tensor, correctly rounded (through float64), as
+    XLA's and CUDA's are: torch's float32 sqrt on the CPU is not (on an
+    AVX-512 CPU it differs in the last bit on about 20% of inputs)."""
+    return torch.sqrt(x.double()).float()
+
+
+def cos(x):
+    """cos of a float32 tensor, correctly rounded (through float64), on
+    every device alike. XLA's float32 cos on the CPU agrees with it on about
+    99% of inputs, torch's float32 cos on the CPU on about 95%."""
+    return torch.cos(x.double()).float()
+
+
+def sin(x):
+    """sin of a float32 tensor, correctly rounded (through float64), as
+    ``cos``."""
+    return torch.sin(x.double()).float()
+
+
 def length(a: Vec3):
-    return torch.sqrt(dot(a, a))
+    return sqrt(dot(a, a))
 
 
 def normalized(a: Vec3) -> Vec3:
@@ -132,6 +155,32 @@ def normalized_safe(a: Vec3, eps: float = 1e-20) -> Vec3:
     ok = n2 > eps
     inv = torch.where(ok, rsqrt(torch.where(ok, n2, 1.0)), 0.0)
     return a * inv
+
+
+def div(num, den):
+    """``num / den`` rounded once, also for a Python number ``num``: torch
+    computes ``number / tensor`` as a reciprocal times the number, which
+    rounds twice."""
+    if not torch.is_tensor(num):
+        num = torch.tensor(num, dtype=den.dtype, device=den.device)
+    return num / den
+
+
+def safe_div(num, den, eps: float = 0.0):
+    """``num / den``, and 0 where ``|den| <= eps``."""
+    ok = torch.abs(den) > eps
+    return torch.where(ok, div(num, torch.where(ok, den, 1.0)), 0.0)
+
+
+def safe_length(a: Vec3, eps: float = 0.0):
+    """sqrt(|a|^2), and 0 where |a|^2 <= eps."""
+    n2 = dot(a, a)
+    ok = n2 > eps
+    return torch.where(ok, sqrt(torch.where(ok, n2, 1.0)), 0.0)
+
+
+def max_component(a: Vec3):
+    return torch.maximum(a.x, torch.maximum(a.y, a.z))
 
 
 def where(mask, a: Vec3, b: Vec3) -> Vec3:

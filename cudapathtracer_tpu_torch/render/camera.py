@@ -14,7 +14,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.rng import Sites, uniform_site
-from ..ops.vecmath import Vec3, normalized
+from ..ops.vecmath import Vec3, cos, normalized, sin, sqrt
 from ..utils.constants import PI_REF
 from ..utils.morton import morton_decode
 
@@ -56,9 +56,9 @@ def camera_rays(cam: Camera, idx, keys, jitter: bool = False,
     if lens:
         u1 = uniform_site(keys, Sites.LENS_U1)
         u2 = uniform_site(keys, Sites.LENS_U2)
-        r = cam.radius * torch.sqrt(u1)
+        r = cam.radius * sqrt(u1)
         theta = 2.0 * PI_REF * u2
-        lens_o = Vec3(r * torch.cos(theta), r * torch.sin(theta),
+        lens_o = Vec3(r * cos(theta), r * sin(theta),
                       torch.zeros_like(r))
     else:
         z = torch.zeros_like(fx)

@@ -24,6 +24,7 @@ import torch
 
 from ..accel.bvh import Accel, FlatBVH
 from ..accel.native import build_bvh_native
+from ..integrators.bdpt import BDPTParams, radiance_bdpt
 from ..integrators.pt_nee import PTParams, radiance_pt_nee
 from ..ops import packets, traversal
 from ..ops.kernels.dense_resident import pack_clusters
@@ -102,25 +103,52 @@ def make_packet_prep(scene, bvh: Accel) -> PacketPrep:
 
 def make_trace_fn(scene, cfg: RenderConfig, bvh: Accel,
                   prep: PacketPrep | None = None):
-    """The trace closure the integrator consumes: (o, d, mask) -> Hit,
-    through the packet engine with the fine BVH as its fallback, and the
-    scene's analytic spheres folded over the triangle hit."""
+    """The trace closure the integrators consume: (o, d, mask, t_cap=None,
+    vis_band=0.0) -> Hit, through the packet engine with the fine BVH as
+    its fallback, and the scene's analytic spheres folded over the triangle
+    hit. A visibility trace (``vis_band`` > 0, BDPT's connection rays) is
+    tiled by ``cfg.tile_size_vis`` where given, and keeps its band only
+    with ``cfg.vis_dropout`` (renderer.py:194-227)."""
     td = traversal.make_trace_data(scene, bvh.fine)
     if prep is None:
         prep = make_packet_prep(scene, bvh)
-    ts = resolve_tile_size(cfg, scene.num_tris)
+    ts_base = resolve_tile_size(cfg, scene.num_tris)
 
-    def trace_fn(o, d, mask):
+    def trace_fn(o, d, mask, t_cap=None, vis_band=0.0):
+        # the tile size keys on the call site, with or without the dropout
+        ts = (cfg.tile_size_vis
+              if vis_band > 0.0 and cfg.tile_size_vis is not None
+              else ts_base)
+        if not cfg.vis_dropout:
+            vis_band = 0.0
         h = packets.trace_packets(
             o, d, prep.pdata, fine_td=td, mask=mask, tile_size=ts,
             max_clusters=cfg.max_clusters, sort=cfg.packet_sort,
             two_level=cfg.two_level_cull, super_factor=cfg.super_factor,
-            super_list=cfg.super_list, resident_pack=prep.resident_pack)
+            super_list=cfg.super_list, resident_pack=prep.resident_pack,
+            t_cap=t_cap, vis_band=vis_band)
         if scene.num_spheres == 0:
             return h
-        return traversal.trace_spheres(o, d, scene, h.t, h.tri, mask=mask)
+        h = traversal.trace_spheres(o, d, scene, h.t, h.tri, mask=mask)
+        # sphere hits beyond the cap are misses too
+        return h if t_cap is None else traversal.apply_t_cap(h, t_cap)
 
     return trace_fn
+
+
+def _radiance(o, d, scene, trace_fn, keys, cfg: RenderConfig,
+              primary_hit=None) -> Vec3:
+    """The integrator ``cfg.integrator`` names (renderer.py:239-252)."""
+    if cfg.integrator == "pt_nee":
+        params = PTParams(num_bounces=cfg.num_bounces,
+                          orthonormal_frame=cfg.orthonormal_frame,
+                          light_normal_mode=cfg.light_normal_mode,
+                          branch_pdf_correction=cfg.branch_pdf_correction)
+        return radiance_pt_nee(o, d, scene, trace_fn, keys, params,
+                               primary_hit=primary_hit)
+    return radiance_bdpt(o, d, scene, trace_fn, keys,
+                         BDPTParams(orthonormal_frame=cfg.orthonormal_frame),
+                         primary_hit=primary_hit)
 
 
 def render_batch(scene, bvh: Accel, cam: Camera, cfg: RenderConfig,
@@ -133,10 +161,6 @@ def render_batch(scene, bvh: Accel, cam: Camera, cfg: RenderConfig,
     dev = cam.pos.x.device
     trace_fn = make_trace_fn(scene, cfg, bvh, prep=prep)
     idx = torch.arange(cfg.num_pixels, dtype=torch.int64, device=dev)
-    params = PTParams(num_bounces=cfg.num_bounces,
-                      orthonormal_frame=cfg.orthonormal_frame,
-                      light_normal_mode=cfg.light_normal_mode,
-                      branch_pdf_correction=cfg.branch_pdf_correction)
     if cfg.reuse_primary_hit and float(cam.radius) != 0.0:
         raise ValueError("cfg.reuse_primary_hit requires a pinhole camera "
                          "(radius=0)")
@@ -153,8 +177,8 @@ def render_batch(scene, bvh: Accel, cam: Camera, cfg: RenderConfig,
         keys = pixel_keys(sample_key(base_key, state.n), idx)
         o, d = camera_rays(cam, idx, keys, jitter=cfg.jitter,
                            lens=not cfg.reuse_primary_hit)
-        sample = radiance_pt_nee(o, d, scene, trace_fn, keys, params,
-                                 primary_hit=primary)
+        sample = _radiance(o, d, scene, trace_fn, keys, cfg,
+                           primary_hit=primary)
         state = _accum_update(state, sample, cfg.compensated_accum)
     return state
 

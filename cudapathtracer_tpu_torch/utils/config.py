@@ -10,12 +10,13 @@ NUM_SAMPLES=100 accumulates 99 samples (kernel.cu:709-710). Our ``spp`` is
 the honest count of samples actually accumulated.
 
 The PyTorch port keeps the JAX package's fields, defaults and accepted
-values unchanged, so a config means the same thing in both packages.
-``check_supported`` rejects every value the port does not implement yet,
-among them any ``packet_engine`` but 'auto' (the engine follows the
-tensors: the CUDA kernel on CUDA tensors, its plain version on CPU tensors)
-and any non-default value of the knobs that tune only the TPU kernels'
-schedule (``SCHEDULE_KNOBS``).
+values unchanged, so a config means the same thing in both packages. Both
+integrators are ported, BDPT (the default) with its visibility knobs
+``tile_size_vis`` and ``vis_dropout``. ``check_supported`` rejects every
+value the port does not implement yet, among them any ``packet_engine`` but
+'auto' (the engine follows the tensors: the CUDA kernel on CUDA tensors,
+its plain version on CPU tensors) and any non-default value of the knobs
+that tune only the TPU kernels' schedule (``SCHEDULE_KNOBS``).
 """
 
 from __future__ import annotations
@@ -39,9 +40,12 @@ class RenderConfig:
     tile_size: int | None = None    # rays per packet tile; None = auto by
     #                                 cluster size (render/renderer.py)
     tile_size_vis: int | None = None  # tile size of visibility traces
-    #                                 (BDPT; not ported)
+    #                                 (BDPT's connection batch); None =
+    #                                 tile_size for both
     vis_dropout: bool = False       # occluded-lane dropout in visibility
-    #                                 traces (not ported)
+    #                                 traces (the kernels' visibility
+    #                                 instance); the image is the same
+    #                                 either way
     cluster_size: int | None = None  # triangles per scene cluster; None =
     #                                  adaptive (renderer.adaptive_cluster_size)
     max_clusters: int = 4095        # shortlist cap per tile; rays whose hit
@@ -51,7 +55,7 @@ class RenderConfig:
     packet_rounds: int = 1          # straggler rounds (one only)
     packet_first_round: int = 2     # round-1 candidate budget (not ported)
     packet_rounds_bdpt: int = 1     # straggler rounds of BDPT's traces
-    #                                 (not ported)
+    #                                 (one only)
     packet_engine: str = "auto"     # 'auto' only (module docstring)
     two_level_cull: bool | str | None = None  # False = flat cull;
     #                                 'super' = supercluster shortlists;
@@ -104,29 +108,29 @@ class RenderConfig:
                                  f"one of {allowed}")
 
 
-# knobs of the JAX package's TPU kernel schedule, capped two-level cull and
-# BDPT traces; the port raises unless they keep their defaults
-SCHEDULE_KNOBS = ("tile_size_vis", "packet_first_round", "packet_rounds_bdpt",
-                  "super_slots", "warm_start", "ray_groups")
+# knobs of the JAX package's TPU kernel schedule, straggler rounds and
+# capped two-level cull; the port raises unless they keep their defaults
+SCHEDULE_KNOBS = ("packet_first_round", "super_slots", "warm_start",
+                  "ray_groups")
 
 
 def check_supported(cfg: RenderConfig) -> None:
     """Raise NotImplementedError, naming the knob, for a value the port
-    does not implement: everything outside the PT+NEE packet path with the
-    flat or super cull and one round. The scene-dependent limit (the auto
-    cull's capped two-level choice past K = 2048 clusters when the scene
-    does not allow super shortlists) is checked where K and C are known
-    (ops/packets.route)."""
+    does not implement: everything outside the PT+NEE and BDPT packet paths
+    with the flat or super cull and one round. The scene-dependent limit
+    (the auto cull's capped two-level choice past K = 2048 clusters when
+    the scene does not allow super shortlists) is checked where K and C are
+    known (ops/packets.route)."""
     if cfg.traversal != "packets":
         raise NotImplementedError(
             f"traversal={cfg.traversal!r}: the port renders through the "
             "packet engine only")
-    if cfg.integrator != "pt_nee":
-        raise NotImplementedError(
-            f"integrator={cfg.integrator!r}: the port renders pt_nee only")
     if cfg.packet_rounds > 1:
         raise NotImplementedError(
             f"packet_rounds={cfg.packet_rounds}: one round only")
+    if cfg.packet_rounds_bdpt > 1:
+        raise NotImplementedError(
+            f"packet_rounds_bdpt={cfg.packet_rounds_bdpt}: one round only")
     if cfg.sample_batch > 1:
         raise NotImplementedError(
             f"sample_batch={cfg.sample_batch}: one sample per trace only")
@@ -139,8 +143,6 @@ def check_supported(cfg: RenderConfig) -> None:
             "cull is not ported (flat, 'super' or auto only)")
     if cfg.super_factor < 1:
         raise ValueError(f"super_factor={cfg.super_factor}: must be >= 1")
-    if cfg.vis_dropout:
-        raise NotImplementedError("vis_dropout=True: not ported")
     if cfg.intersector != "bw":
         raise NotImplementedError(
             f"intersector={cfg.intersector!r}: the packet engine runs the "

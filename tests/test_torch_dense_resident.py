@@ -16,17 +16,31 @@ import pytest
 import torch
 from torch_fold_cases import (
     SYNTHETIC_CASES,
+    VIS_BAND,
+    check_vis,
     colonnade_case,
     jax_scene,
     packet_data,
     shortlists,
     synthetic_case,
+    vis_case,
 )
 
 from cudapathtracer_tpu_torch.models import procedural as tproc
 from cudapathtracer_tpu_torch.ops.kernels import dense_resident as tdr
 from cudapathtracer_tpu_torch.ops.kernels.work import needed_work
 from cudapathtracer_tpu_torch.render import renderer as tren
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread per test process: the suite runs several workers on
+    the CPU, and torch's default of a thread per core in each of them
+    oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -171,6 +185,24 @@ def test_k1_group(tile_size, group):
     assert tile_size % group == 0 and group <= tdr.K1_BLOCK_RAYS
 
 
+@pytest.mark.parametrize("case", SYNTHETIC_CASES + ("colonnade",))
+@pytest.mark.parametrize("group", [32, 128])
+def test_vis_band_plain_and_schedule(case, group):
+    """The visibility query on the CPU: the plain version sets t to -3e38
+    exactly where the closest hit lies below cap - vis_band; the plain count
+    of a schedule that retires rays as the kernels do gives the same t, the
+    closest hit's id on every ray it keeps, and folds no more clusters than
+    the closest-hit schedule."""
+    args = vis_case(case, 128, 128)
+    st, stri, folds = tdr.fold_schedule(*args, group, vis_band=VIS_BAND)
+    retired = check_vis(args, (st, stri))
+    if case in ("band", "colonnade"):
+        assert retired > 0
+    assert bool((folds <= tdr.fold_schedule(*args, group)[2]).all())
+    with pytest.raises(ValueError, match="vis_band"):
+        tdr.plain_fold(*args, vis_band=-1.0)
+
+
 def test_fold_schedule_checks_group():
     args, _ = synthetic_case("ties", 128, 128)
     with pytest.raises(ValueError, match="group"):
@@ -286,3 +318,28 @@ def test_cuda_corner_cases(case, cluster_size, tile_size):
     group = tdr.k1_group(tile_size)
     assert torch.equal(counts[:, 0], tdr.fold_schedule(*args, group)[2])
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SYNTHETIC_CASES + ("colonnade",))
+@pytest.mark.parametrize("cluster_size,tile_size", [(128, 128), (256, 256)])
+def test_cuda_vis_instance(case, cluster_size, tile_size):
+    """On a card: K1's visibility instance (vis_band > 0) against its plain
+    version (t bit for bit, the -3e38 set included; ids wherever t is not
+    -3e38) and, in full, against the plain count of its blocks' schedule;
+    its counting instance folds what that schedule folds."""
+    dev = _cuda()
+    args = vis_case(case, cluster_size, tile_size, "cuda")
+    group = tdr.k1_group(tile_size)
+    n = tdr.dense_intersect_resident.launches
+    got = tdr.dense_intersect_resident(*args, vis_band=VIS_BAND)
+    torch.cuda.synchronize()
+    assert tdr.dense_intersect_resident.launches == n + 1
+    check_vis(args, got, group=group)
+    counts = torch.empty((args[0].shape[0], tdr.COUNT_COLS),
+                         dtype=torch.int64, device=dev)
+    tc, tric = tdr.dense_intersect_resident(*args, counts_out=counts,
+                                            vis_band=VIS_BAND)
+    assert torch.equal(tc, got[0]) and torch.equal(tric, got[1])
+    assert torch.equal(counts[:, 0], tdr.fold_schedule(
+        *args, group, vis_band=VIS_BAND)[2])

@@ -18,13 +18,26 @@ tests/test_torch_dense_stream.py``."""
 import numpy as np
 import pytest
 import torch
-from torch_fold_cases import colonnade_case, jax_scene, rays, shortlists, tv
+from torch_fold_cases import (SYNTHETIC_CASES, VIS_BAND, check_vis,
+                              colonnade_case, jax_scene, rays, shortlists,
+                              tv, vis_case)
 
 from cudapathtracer_tpu_torch.ops import packets as tpk
 from cudapathtracer_tpu_torch.ops import traversal as ttrav
 from cudapathtracer_tpu_torch.ops.kernels import dense as tk2
 from cudapathtracer_tpu_torch.ops.kernels import dense_resident as tk1
 from cudapathtracer_tpu_torch.ops.kernels.work import needed_work
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread per test process: the suite runs several workers on
+    the CPU, and torch's default of a thread per core in each of them
+    oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -151,3 +164,27 @@ def test_cuda_counting_instance(cluster_size):
     needed = needed_work(sl, t, pack, num_tris)[0]
     assert needed > 0
     assert needed <= int(c2[:, 1].sum()) and needed <= int(c1[:, 1].sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SYNTHETIC_CASES + ("colonnade",))
+def test_cuda_vis_instance(case):
+    """On a card: K2's visibility instance against its plain version (t bit
+    for bit, the -3e38 set included; ids wherever t is not -3e38) and, in
+    full, against the plain count of its block-per-tile schedule; its
+    counting instance folds what that schedule folds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
+    args = vis_case(case, 128, 128, "cuda")
+    n = tk2.dense_intersect.launches
+    got = tk2.dense_intersect(*args, vis_band=VIS_BAND)
+    torch.cuda.synchronize()
+    assert tk2.dense_intersect.launches == n + 1
+    check_vis(args, got, tk2.dense_intersect_plain, group=128)
+    counts = torch.empty((args[0].shape[0], tk1.COUNT_COLS),
+                         dtype=torch.int64, device="cuda")
+    tc, tric = tk2.dense_intersect(*args, counts_out=counts,
+                                   vis_band=VIS_BAND)
+    assert torch.equal(tc, got[0]) and torch.equal(tric, got[1])
+    assert torch.equal(counts[:, 0], tk1.fold_schedule(
+        *args, 128, vis_band=VIS_BAND)[2])

@@ -22,8 +22,9 @@ tests/test_torch_dense_super.py``."""
 import numpy as np
 import pytest
 import torch
-from torch_fold_cases import (colonnade_case, jax_scene, packet_data, rays,
-                              shortlists, tv)
+from torch_fold_cases import (VIS_BAND, check_vis, colonnade_case,
+                              jax_scene, packet_data, rays, shortlists, tv,
+                              vis_case)
 
 import cudapathtracer_tpu_torch as T
 from cudapathtracer_tpu_torch.models import procedural as tproc
@@ -36,6 +37,17 @@ from cudapathtracer_tpu_torch.render import renderer as tren
 
 F = 2
 SUBDIV = 3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread per test process: the suite runs several workers on
+    the CPU, and torch's default of a thread per core in each of them
+    oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -231,3 +243,43 @@ def test_cuda_kernel_at_cluster_widths(cluster_size):
     assert bool((counts[:, 0] <= sl.counts * f).all())
     assert needed_work(sl, t, pack, num_tris, f)[0] <= int(counts[:, 1].sum())
     assert (tri >= 0).sum() > 100
+
+
+def _super_plain(f):
+    def fold(*args, vis_band=0.0):
+        return tk3.dense_intersect_super_plain(*args, f, vis_band)
+    return fold
+
+
+def test_vis_band_super_plain():
+    """K3's plain version of a visibility query on super shortlists (F = 8,
+    colonnade subdiv 3): t is -3e38 exactly where the closest hit over the
+    members lies below the floor, the closest hit elsewhere."""
+    f = 8
+    args = vis_case("colonnade", 128, 128, F=f, fold=_super_plain(f))
+    got = tk3.dense_intersect_super_plain(*args, f, VIS_BAND)
+    assert check_vis(args, got, _super_plain(f)) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster_size", [128, 256, 1024])
+def test_cuda_vis_instance(cluster_size):
+    """On a card, at F = 8 on colonnade subdiv 3 with caps near each ray's
+    closest hit: K3's visibility instance against its plain version, t bit
+    for bit (the -3e38 set included) and ids wherever t is not -3e38; its
+    counting instance returns the same hits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
+    f = 8
+    args = vis_case("colonnade", cluster_size, 128, "cuda", F=f,
+                    fold=_super_plain(f))
+    n = tk3.dense_intersect_super.launches
+    got = tk3.dense_intersect_super(*args, f, vis_band=VIS_BAND)
+    torch.cuda.synchronize()
+    assert tk3.dense_intersect_super.launches == n + 1
+    assert check_vis(args, got, _super_plain(f)) > 0
+    counts = torch.empty((args[0].shape[0], tk1.COUNT_COLS),
+                         dtype=torch.int64, device="cuda")
+    tc, tric = tk3.dense_intersect_super(*args, f, counts_out=counts,
+                                         vis_band=VIS_BAND)
+    assert torch.equal(tc, got[0]) and torch.equal(tric, got[1])

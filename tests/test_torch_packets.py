@@ -3,7 +3,9 @@ plain engine on the CPU) against the JAX package's
 trace_packets(engine="xla") and against the port's brute-force oracle, on
 the cases of tests/test_packets.py: primary rays, incoherent sorted rays, a
 mask, a ray count that is not a multiple of the tile, and the overflow
-fallback through the fine BVH with a tiny shortlist.
+fallback through the fine BVH with a tiny shortlist. Then the caller's cap
+(``t_cap``) and visibility-only queries (``vis_band``), against the JAX
+package's capped query and its Pallas kernels in interpret mode.
 
 Triangle ids match exactly. t equals the port's brute force bit for bit;
 against the JAX engine it is held to rtol 1e-6 (tests/test_packets.py:202),
@@ -231,3 +233,174 @@ def test_route_follows_the_budget(monkeypatch):
     monkeypatch.setattr(tk1, "RESIDENT_VMEM_BUDGET", 1024)
     assert tpk.route(115, 256) == "stream"
     assert tpk.route(115, 256, "super", 8) == "stream"
+
+
+# ---- the caller's cap (t_cap) and visibility-only queries (vis_band) -----
+# name -> (fixture scene, tile_size, max_clusters, sort, two_level)
+CAP_CASES = {
+    "stream_sorted": ("c16", 64, 8, True, None),
+    "heavy_fallback": ("c16", 64, 1, False, None),
+    "resident_sorted": ("c128", 64, 16, True, None),
+    "super_sorted": ("c128", 64, 16, True, "super"),
+}
+VIS_ROUTES = ("resident", "stream", "super")
+
+
+def _kw(two_level):
+    return dict(two_level="super", super_factor=2) if two_level else {}
+
+
+@pytest.fixture(scope="module")
+def capped(setup):
+    """Camera rays of two scenes: the C = 16 fixture's (the stream route)
+    and tests/test_torch_dense_super.py's at C = 128 (subdiv 3, K = 16 >
+    2F: the resident and super routes), with the caps of
+    tests/test_packets.py:310-329 (a quarter at 1.5, a quarter exactly at
+    the ray's hit) and, so that some hits survive their cap, a quarter just
+    above the hit and a quarter at 4.0; shadow-style queries
+    (tests/test_packets.py:442-502) toward a light;
+    and the JAX package's answers: its capped XLA query, its closest-hit
+    query of the shadow rays, and its Pallas kernels' visibility query in
+    interpret mode on each route."""
+    from cudapathtracer_tpu.ops.pallas import dense_resident as jdr
+    from cudapathtracer_tpu.utils.constants import EPS_VISIBILITY
+    from torch_fold_cases import jax_scene
+
+    sc = jax_scene(subdiv=3)
+    scenes = {"c16": (setup["ts"], setup["tpd"], setup["ttd"], None),
+              "c128": (sc["ts"], sc["tpd"], sc["ttd"], sc)}
+    # the JAX side of the C = 16 fixture, rebuilt as setup builds it
+    js = jproc.to_scene(jproc.cornell_with_sphere_mesh(subdiv=2))
+    acc16 = build_bvh_for_scene(js, leaf_size=4, cluster_size=16)
+    jside = {"c16": (jpk.make_packet_data(
+        js, JVec3(acc16.cl_lo_x, acc16.cl_lo_y, acc16.cl_lo_z),
+        JVec3(acc16.cl_hi_x, acc16.cl_hi_y, acc16.cl_hi_z), acc16.cl_tri),
+        jtrav.make_trace_data(js, acc16.fine)),
+        "c128": (sc["jpd"], sc["jtd"])}
+    o, d = (np.stack([np.asarray(c) for c in v]) for v in setup["inputs"][
+        "primary"][:2])
+    to, td_ = TVec3(*map(torch.from_numpy, o)), TVec3(*map(torch.from_numpy,
+                                                           d))
+    jo, jd = JVec3(*map(jnp.asarray, o)), JVec3(*map(jnp.asarray, d))
+    out = {"o": to, "d": td_, "scenes": scenes, "caps": {}, "jcap": {}}
+    for key, (ts_, _, _, _) in scenes.items():
+        b = ttrav.trace_bruteforce(to, td_, ts_)
+        q = torch.arange(b.t.shape[0]) % 4
+        caps = torch.where(q == 0, 1.5, torch.where(
+            q == 1, b.t, torch.where(q == 2, torch.nextafter(
+                b.t, torch.tensor(np.inf)), 4.0)))
+        out["caps"][key] = caps
+    for name, (key, P, mc, sort, tl) in CAP_CASES.items():
+        jpd, jtd = jside[key]
+        out["jcap"][name] = jpk.trace_packets(
+            jo, jd, jpd, fine_td=jtd, tile_size=P, max_clusters=mc,
+            engine="xla", sort=sort, t_cap=jnp.asarray(
+                out["caps"][key].numpy()))
+
+    # shadow-style queries in the C = 128 scene, from the camera rays' hits
+    # to the centroid of the first light triangle: a clear segment hits the
+    # light at its length (visible), a blocked one hits short of it
+    h0 = ttrav.trace_bruteforce(to, td_, sc["ts"])
+    t0 = torch.where(h0.tri >= 0, h0.t - 1e-3, 1.0)
+    pos = TVec3(*(oc + dc * t0 for oc, dc in zip(to, td_)))
+    lt = sc["ts"].lights[0].long()
+    tgt = [sum(getattr(sc["ts"].verts, c)[getattr(sc["ts"], f"tri_v{k}")[
+        lt].long()] for k in range(3)) / 3.0 for c in "xyz"]
+    seg = TVec3(*(tgt[0] - pos.x, tgt[1] - pos.y, tgt[2] - pos.z))
+    ln = torch.sqrt(seg.x ** 2 + seg.y ** 2 + seg.z ** 2)
+    dirn = TVec3(*(c / ln for c in seg))
+    out.update(pos=pos, dirn=dirn, ln=ln,
+               vcap=ln + 2.0 * EPS_VISIBILITY, band=3.0 * EPS_VISIBILITY,
+               eps=EPS_VISIBILITY)
+    jpos, jdir = (JVec3(*(jnp.asarray(c.numpy()) for c in v))
+                  for v in (pos, dirn))
+    jvcap = jnp.asarray(out["vcap"].numpy())
+    out["jclosest"] = jpk.trace_packets(
+        jpos, jdir, sc["jpd"], fine_td=sc["jtd"], tile_size=64,
+        engine="xla", t_cap=jvcap)
+    out["jvis"] = {}
+    for r in VIS_ROUTES:
+        with pytest.MonkeyPatch.context() as mp:
+            if r == "stream":
+                mp.setattr(jdr, "RESIDENT_VMEM_BUDGET", 1024)
+            out["jvis"][r] = jpk.trace_packets(
+                jpos, jdir, sc["jpd"], fine_td=sc["jtd"], tile_size=64,
+                engine="pallas_interpret", sort=True, t_cap=jvcap,
+                vis_band=out["band"], **_kw(r == "super"))
+    return out
+
+
+@pytest.mark.parametrize("name", list(CAP_CASES))
+def test_t_cap_matches_jax_and_capped_brute(capped, name):
+    """The caller's cap: hits below it exact, hits at or beyond it the
+    miss, after the fallback (packets.py:860-884), with the cap carried
+    through the ray sort: ids and t equal the port's capped brute force and
+    the JAX package's capped query, on the stream, resident and super
+    routes and with a one-cluster shortlist (heavy fallback)."""
+    key, P, mc, sort, tl = CAP_CASES[name]
+    ts_, tpd, ttd, _ = capped["scenes"][key]
+    caps = capped["caps"][key]
+    o, d = capped["o"], capped["d"]
+    hit = tpk.trace_packets(o, d, tpd, fine_td=ttd, tile_size=P,
+                            max_clusters=mc, sort=sort, t_cap=caps,
+                            **_kw(tl))
+    want = ttrav.apply_t_cap(ttrav.trace_bruteforce(o, d, ts_), caps)
+    np.testing.assert_array_equal(hit.tri.numpy(), want.tri.numpy())
+    np.testing.assert_array_equal(hit.t.numpy(), want.t.numpy())
+    jref = capped["jcap"][name]
+    np.testing.assert_array_equal(hit.tri.numpy(), np.asarray(jref.tri))
+    np.testing.assert_array_equal(hit.t.numpy(), np.asarray(jref.t))
+    q = torch.arange(caps.shape[0]) % 4
+    assert bool((hit.tri[q == 1] == -1).all())
+    assert int((hit.tri[q == 2] >= 0).sum()) > 100
+    if name == "heavy_fallback":
+        sl = tpk.build_shortlists(o, d, torch.ones_like(caps, dtype=bool),
+                                  tpd, P, mc, t_cap=caps)
+        assert torch.isfinite(sl.U).any()
+
+
+def test_t_cap_rides_the_sort(capped):
+    """Sorted and unsorted capped queries agree: the cap is permuted with
+    the rays (a cap left in ray order would cap the wrong rays)."""
+    ts_, tpd, ttd, _ = capped["scenes"]["c128"]
+    caps = capped["caps"]["c128"]
+    a, b = (tpk.trace_packets(capped["o"], capped["d"], tpd, fine_td=ttd,
+                              tile_size=64, max_clusters=16, sort=s,
+                              t_cap=caps) for s in (False, True))
+    np.testing.assert_array_equal(a.tri.numpy(), b.tri.numpy())
+    np.testing.assert_array_equal(a.t.numpy(), b.t.numpy())
+
+
+@pytest.mark.parametrize("route", VIS_ROUTES)
+def test_vis_band_matches_jax_kernels(capped, route, monkeypatch):
+    """A visibility-only query (vis_band = 3 eps, t_cap = len + 2 eps)
+    against the JAX package's Pallas kernels in interpret mode on the
+    resident, stream (forced) and super routes: t equal, the occluded
+    report -1.0 included; ids equal wherever t is not -1.0 (an occluded
+    ray's id is whichever occluder retired it); and every decision
+    |t - len| <= eps equal to the JAX package's closest-hit query's."""
+    if route == "stream":
+        monkeypatch.setattr(tk1, "RESIDENT_VMEM_BUDGET", 1024)
+    _, tpd, ttd, _ = capped["scenes"]["c128"]
+    assert tpk.route(tpd.num_clusters, tpd.cluster_size,
+                     "super" if route == "super" else None, 2) == route
+    hv = tpk.trace_packets(capped["pos"], capped["dirn"], tpd, fine_td=ttd,
+                           tile_size=64, sort=True, t_cap=capped["vcap"],
+                           vis_band=capped["band"], **_kw(route == "super"))
+    jv = capped["jvis"][route]
+    tv_, jt = hv.t.numpy(), np.asarray(jv.t)
+    np.testing.assert_array_equal(tv_, jt)
+    live = tv_ != -1.0
+    np.testing.assert_array_equal(hv.tri.numpy()[live],
+                                  np.asarray(jv.tri)[live])
+    ln, eps = capped["ln"].numpy(), capped["eps"]
+    vis = np.abs(tv_ - ln) <= eps
+    ref = np.abs(np.asarray(capped["jclosest"].t) - ln) <= eps
+    np.testing.assert_array_equal(vis, ref)
+    assert (~live).sum() > 0 and vis.sum() > 0
+
+
+def test_vis_band_needs_t_cap(setup):
+    o, d, _ = setup["inputs"]["primary"]
+    with pytest.raises(ValueError, match="t_cap"):
+        tpk.trace_packets(_tv(o), _tv(d), setup["tpd"], vis_band=0.03)

@@ -44,21 +44,24 @@ def test_render_config_defaults_field_by_field():
         assert tf[name] == value, name
 
 
+# each case keeps the id it had while the list also held the knobs that
+# are ported since (integrator="bdpt", vis_dropout, tile_size_vis)
 @pytest.mark.parametrize("kw,knob", [
-    (dict(integrator="bdpt"), "integrator"),
-    (dict(packet_rounds=2), "packet_rounds"),
-    (dict(sample_batch=2), "sample_batch"),
-    (dict(sort_window=256), "sort_window"),
-    (dict(two_level_cull=True), "two_level_cull"),
-    (dict(two_level_cull="super", super_slots=4), "super_slots"),
-    (dict(vis_dropout=True), "vis_dropout"),
-    (dict(intersector="mt"), "intersector"),
-    (dict(traversal="bvh"), "traversal"),
-    (dict(packet_engine="xla"), "packet_engine"),
-    (dict(warm_start=2), "warm_start"),
-    (dict(ray_groups=2), "ray_groups"),
-    (dict(super_factor=4, super_slots=8), "super_slots"),
-    (dict(tile_size_vis=64), "tile_size_vis"),
+    pytest.param(kw, knob, id=f"kw{i}-{knob}") for i, (kw, knob) in (
+        (1, (dict(packet_rounds=2), "packet_rounds")),
+        (2, (dict(sample_batch=2), "sample_batch")),
+        (3, (dict(sort_window=256), "sort_window")),
+        (4, (dict(two_level_cull=True), "two_level_cull")),
+        (5, (dict(two_level_cull="super", super_slots=4), "super_slots")),
+        (7, (dict(intersector="mt"), "intersector")),
+        (8, (dict(traversal="bvh"), "traversal")),
+        (9, (dict(packet_engine="xla"), "packet_engine")),
+        (10, (dict(warm_start=2), "warm_start")),
+        (11, (dict(ray_groups=2), "ray_groups")),
+        (12, (dict(super_factor=4, super_slots=8), "super_slots")),
+        (14, (dict(integrator="bdpt", packet_rounds_bdpt=2),
+              "packet_rounds_bdpt")),
+    )
 ])
 def test_unsupported_knobs_raise(kw, knob):
     with pytest.raises(NotImplementedError, match=knob):
@@ -69,10 +72,14 @@ def test_unsupported_knobs_raise(kw, knob):
     dict(two_level_cull="super"),
     dict(two_level_cull=False),
     dict(two_level_cull="super", super_factor=4, super_list=31),
+    dict(integrator="bdpt"),
+    dict(integrator="bdpt", vis_dropout=True),
+    dict(integrator="bdpt", tile_size_vis=64),
 ])
 def test_super_cull_knobs_accepted(kw):
-    """The super cull and its knobs are ported; only super_slots, which
-    the capped two-level cull alone reads, stays at its default."""
+    """The super cull and its knobs are ported (only super_slots, which the
+    capped two-level cull alone reads, stays at its default), and so are
+    BDPT and its visibility knobs."""
     check_supported(T.RenderConfig(**{"integrator": "pt_nee", **kw}))
 
 

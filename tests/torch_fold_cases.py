@@ -58,7 +58,9 @@ def shortlists(tpd, kind, sort, max_clusters=16, **kw):
 
 
 SYNTHETIC_CASES = ("ties", "masked", "cap_is_hit", "negative_cap", "padding",
-                   "max_float_cap")
+                   "max_float_cap", "band")
+# the visibility band of BDPT's connection rays: 3 * EPS_VISIBILITY
+VIS_BAND = 0.03
 
 
 def synthetic_case(case, C, P, dev="cpu", tiles=4, K=6, seed=0):
@@ -76,7 +78,11 @@ def synthetic_case(case, C, P, dev="cpu", tiles=4, K=6, seed=0):
       the first P rays, cast along +z from z = 2 above the other clusters,
       hit at exactly t = 1e5 = MAX_FLOAT, with the scene's exit cap past it:
       the hit ties the init (MAX_FLOAT, -1) and must not win, and neither
-      may a rejected test's (MAX_FLOAT, id).
+      may a rejected test's (MAX_FLOAT, id);
+    * band: each ray that hits gets a cap near its closest hit, from
+      VIS_BAND below to twice VIS_BAND above it (``band_caps``), so that a
+      visibility query (vis_band = VIS_BAND) retires some rays and keeps
+      others.
 
     -> (kernel inputs ids, counts, entries, rays, packed, tri, boxes on
     ``dev``; the number of triangles)."""
@@ -144,7 +150,68 @@ def synthetic_case(case, C, P, dev="cpu", tiles=4, K=6, seed=0):
                                .astype(f32))
         rays[:, 7] = torch.where(torch.arange(P) % 2 == 0, neg, rays[:, 7])
     args = (sl.ids, sl.counts, sl.entries, rays.contiguous(), *pack)
+    if case == "band":
+        args = band_caps(args, rng)
     return tuple(a.to(dev) for a in args), T
+
+
+def band_caps(args, rng, fold=tk1.plain_fold):
+    """Kernel inputs with each hitting ray's cap (row 7) moved near its
+    closest hit t (by ``fold``, the plain version of the inputs' kernel):
+    t + VIS_BAND * u, u from {-1, 0, 1, 2} or uniform in [-1, 2], so the
+    floor cap - VIS_BAND lies above t (retire) or near or below it (keep;
+    a cap of t itself keeps the init (t, -1))."""
+    ids, counts, entries, rays, packed, tri, boxes = args
+    t, best = fold(*args)
+    shape = tuple(t.shape)
+    u = np.where(rng.random(shape) < 0.5, rng.integers(-1, 3, shape),
+                 rng.uniform(-1.0, 2.0, shape)).astype(np.float32)
+    cap = t + np.float32(VIS_BAND) * torch.from_numpy(u).to(t.device)
+    rays = rays.clone()
+    rays[:, 7] = torch.where(best >= 0, cap, rays[:, 7])
+    return (ids, counts, entries, rays.contiguous(), packed, tri, boxes)
+
+
+def vis_case(case, C, P, dev="cpu", fold=tk1.plain_fold, F=None):
+    """Inputs for a visibility query: a synthetic case, or ("colonnade")
+    colonnade subdiv 3 with band caps (in super units of F with ``F``, and
+    then ``fold`` K3's plain version)."""
+    if case == "colonnade":
+        sl, pack, _ = colonnade_case(C, torch.device(dev), super_factor=F,
+                                     tile_size=P)
+        return band_caps((sl.ids, sl.counts, sl.entries, sl.rays, *pack),
+                         np.random.default_rng(11), fold)
+    return synthetic_case(case, C, P, dev)[0]
+
+
+def check_vis(args, got, fold=tk1.plain_fold, group=None):
+    """A visibility query's (t, id) ``got`` against the plain version
+    ``fold``: t bit for bit, -3e38 exactly where the closest hit lies below
+    the floor cap - VIS_BAND (and on masked lanes), ids equal elsewhere;
+    with ``group``, equal in full to the plain count of that schedule (K1's
+    or K2's), retired ids included. -> the number of retired live rays."""
+    def host(a):
+        return a.cpu().numpy()
+
+    t, tri = got
+    pt, ptri = fold(*args, vis_band=VIS_BAND)
+    ct, ctri = fold(*args)
+    rays = args[3]
+    live = rays[:, 6] > 0.5
+    below = ct < rays[:, 7] - np.float32(VIS_BAND)
+    np.testing.assert_array_equal(
+        host(pt), host(torch.where(below, tk1.MASKED_T_INIT, ct)))
+    np.testing.assert_array_equal(host(t).view(np.int32),
+                                  host(pt).view(np.int32))
+    keep = pt != tk1.MASKED_T_INIT
+    np.testing.assert_array_equal(host(tri[keep]), host(ptri[keep]))
+    np.testing.assert_array_equal(host(ptri), host(ctri))
+    if group is not None:
+        st, stri, _ = tk1.fold_schedule(*args, group, vis_band=VIS_BAND)
+        np.testing.assert_array_equal(host(t).view(np.int32),
+                                      host(st).view(np.int32))
+        np.testing.assert_array_equal(host(tri), host(stri))
+    return int((below & live).sum())
 
 
 def colonnade_case(cluster_size, dev, super_factor=None, tile_size=128):

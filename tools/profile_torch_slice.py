@@ -2,14 +2,16 @@
 
 The headline is chip_smoke.py's: colonnade subdiv 3 (20,884 triangles),
 1024x1024, pt_nee, 3 bounces, pinhole camera at (0, 2, 3.4), focal length 2,
-primary hit reused. Phases, each printing lines that start with its name:
+primary hit reused; ``--integrator bdpt --size 512`` profiles chip_smoke.py's
+bdpt path instead. Phases, each printing lines that start with its name:
 
 1. render_batch: wall seconds at 1, 4 and 8 spp after one warm-up,
    ``--repeats`` times each, each ended by torch.cuda.synchronize();
 2. trace: one sample with every trace call (sort, cull, topk, K1, _finish)
    timed between synchronizes, against that sample's wall time;
 3. rng: CUDA-event ms of one sample's random numbers over all pixels (the
-   pixel keys, then a 6-value uniform_sites draw per bounce);
+   pixel keys, then a 6-value uniform_sites draw per bounce; BDPT: one
+   7-value draw);
 4. profile: torch.profiler over one 1-spp render_batch: the device time of
    all kernels, copies and sets and their count, the profiled wall, K1's
    device time, and the host ops whose kernels took the most device time
@@ -17,7 +19,7 @@ primary hit reused. Phases, each printing lines that start with its name:
 
 Run on a CUDA machine from the repo root:
     python3 tools/profile_torch_slice.py [--size 1024] [--repeats 3]
-                                         [--out table.txt]
+        [--integrator pt_nee|bdpt] [--out table.txt]
 """
 
 from __future__ import annotations
@@ -32,7 +34,6 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import cudapathtracer_tpu_torch as cpt  # noqa: E402
-from cudapathtracer_tpu_torch.integrators.pt_nee import radiance_pt_nee  # noqa: E402
 from cudapathtracer_tpu_torch.models import procedural  # noqa: E402
 from cudapathtracer_tpu_torch.ops.kernels import dense_resident as k1  # noqa: E402
 from cudapathtracer_tpu_torch.ops.rng import (  # noqa: E402
@@ -58,6 +59,8 @@ def main():
     ap.add_argument("--size", type=int, default=1024)
     ap.add_argument("--subdiv", type=int, default=3)
     ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--integrator", default="pt_nee",
+                    choices=("pt_nee", "bdpt"))
     ap.add_argument("--out", default=None,
                     help="file for the whole profiler table")
     args = ap.parse_args()
@@ -70,7 +73,7 @@ def main():
 
     n = args.size
     scene = procedural.to_scene(procedural.colonnade(subdiv=args.subdiv), dev)
-    cfg = cpt.RenderConfig(width=n, height=n, integrator="pt_nee",
+    cfg = cpt.RenderConfig(width=n, height=n, integrator=args.integrator,
                            reuse_primary_hit=True)
     bvh = renderer.build_bvh_for_scene(scene, cfg.leaf_size)
     prep = renderer.make_packet_prep(scene, bvh)
@@ -99,8 +102,8 @@ def main():
     idx = torch.arange(cfg.num_pixels, dtype=torch.int64, device=dev)
     trace_s = []
 
-    def timed(o, d, mask):
-        h, s = sync_s(lambda: trace_fn(o, d, mask))
+    def timed(o, d, mask, **kw):
+        h, s = sync_s(lambda: trace_fn(o, d, mask, **kw))
         trace_s.append(s)
         return h
 
@@ -109,8 +112,8 @@ def main():
         o0, d0 = camera_rays(cam, idx, keys, lens=False)
         primary = timed(o0, d0, torch.ones(idx.shape, dtype=torch.bool,
                                            device=dev))
-        return radiance_pt_nee(o0, d0, scene, timed, keys,
-                               primary_hit=primary)
+        return renderer._radiance(o0, d0, scene, timed, keys, cfg,
+                                  primary_hit=primary)
 
     one_sample()
     trace_s.clear()
@@ -122,6 +125,9 @@ def main():
     # ---- 3. RNG of one sample ----------------------------------------------
     def rng():
         keys = pixel_keys(sample_key(key, 0), idx)
+        if cfg.integrator == "bdpt":
+            uniform_sites(keys, SiteGroups.BDPT, 7)
+            return
         for b in range(cfg.num_bounces):
             uniform_sites(keys, SiteGroups.PT_BOUNCE, 6, bounce=b)
 
@@ -132,8 +138,10 @@ def main():
         rng()
     stop.record()
     torch.cuda.synchronize()
+    draws = ("1 uniform_sites draw of 7" if cfg.integrator == "bdpt"
+             else f"{cfg.num_bounces} uniform_sites draws of 6")
     print(f"rng: ms_per_sample={start.elapsed_time(stop) / 5:.3f} "
-          f"(pixel keys + {cfg.num_bounces} uniform_sites draws of 6)")
+          f"(pixel keys + {draws})")
 
     # ---- 4. torch.profiler over one sample ---------------------------------
     from torch.autograd import DeviceType

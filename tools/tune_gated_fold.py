@@ -83,7 +83,10 @@ FAMILIES = {"k1": (k1.SOURCE, "dense_resident_launch", 5),
 
 def launch_ints(src):
     """The int arguments of ``dense_resident_launch`` in K1 source ``src``:
-    5 where it takes K after C, 4 where it does not."""
+    5 where it takes K after C, 4 where it does not. The binding also passes
+    the visibility band (0 here), a float after the ints; a source from
+    before the visibility instance ignores it (on x86-64 a float goes in a
+    vector register, so the stream argument keeps its place)."""
     with open(src) as fh:
         text = fh.read()
     sig = text[text.index("dense_resident_launch("):]
