@@ -1,18 +1,23 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-Drives the port's six render paths (five PT+NEE paths and BDPT, through the
-packet engine and its CUDA kernels K1, K2 and K3) at the JAX bench's sizes
-and checks them:
+Drives the port's render paths (PT+NEE and BDPT through the packet engine
+and its CUDA kernels K1, K2 and K3, with either triangle intersector) at
+the JAX bench's sizes, and its other two engines, and checks them:
 
 1. device: a CUDA card is required; its name and power limit are printed;
-2. build: K1, K2, K3 (nvcc, sm_90a) and the native BVH builder, all
-   started together, timed; each kernel's registers and spills as ptxas
-   reports them;
-3. goldens: a 64x64, 16 spp pt_nee Cornell render on the card against
-   tests/goldens/cornell_pt_nee_64_spp16.ppm, and a 32x32, 8 spp BDPT one
-   (the default integrator) against cornell_bdpt_32_spp8.ppm, under the
-   golden tests' rule;
-4. headline (resident route, K1): colonnade subdiv 3 (20,884 triangles,
+2. build: K1, K2, K3 (nvcc, sm_90a; each with its Baldwin-Weber and
+   Moller-Trumbore instances) and the native BVH builder, all started
+   together, timed; each instance's registers and spills as ptxas reports
+   them;
+3. goldens: all five of tests/goldens/ on the card under the golden tests'
+   rule: the pt_nee Cornell renders at 64x64 16 spp and 128x128 8 spp, the
+   analytic-sphere one at 32x32 8 spp (ray_sphere on the card), the BDPT
+   one at 32x32 8 spp (the default integrator) and the BVH falsecolor of
+   colonnade subdiv 2 at 64x64 (the fine-BVH walk with its visit counts);
+4. engines: a 32x32 pt_nee Cornell render with traversal="bvh" and one
+   with traversal="brute": bit-identical images, and no fold kernel or
+   plain fold runs;
+5. headline (resident route, K1): colonnade subdiv 3 (20,884 triangles,
    adaptive C = 256, P = 256). On the primary batch and a sorted bounce
    batch of a real pt_nee sample: K1 against its plain version on the
    full batch; K1 against K2 on the same shortlists, bit for bit, both
@@ -24,39 +29,55 @@ and checks them:
    shortlist, so the fallback runs on the card; hits equal to brute
    force's), one sample's trace calls, and HEADLINE_WINDOWS timed 1024^2
    windows of HEADLINE_SPP spp after a warm-up;
-5. resident_82k (K1): colonnade subdiv 4 (82,324 triangles, adaptive
-   C = 512, P = 256): the same checks, K1 against its plain version on
-   SAMPLE_TILES sampled tiles, one sample's trace calls and PATH_WINDOWS
-   windows of PATH_SPP spp;
-6. resident_wide (K1): colonnade subdiv 5 (328,084 triangles) at its
+6. mt (resident route, K1's Moller-Trumbore instance): the same scene with
+   intersector="mt" (its own pack, rows v0, e1, e2): the checks of step 5
+   with the MT instances (K1 against its plain version on the full
+   primary batch and SAMPLE_TILES sampled bounce tiles, K1 against K2 bit
+   for bit in turns, counting instances, the schedule); on the bounce
+   batch K3's MT instance on super shortlists of BDPT_SUPER_F against its
+   plain version and, bit for bit, K1's on the flat shortlists; MT against
+   BW on the same rays (t within MT_BW_RTOL where both hit, hit/miss flips
+   under MT_BW_FLIPS_MAX); K1's MT visibility instance with caps near each
+   ray's hit; the MT fallback against MT brute force; one sample's trace
+   calls; MT_WINDOWS windows of MT_SPP spp, K1 alone launching;
+7. resident_82k (K1): colonnade subdiv 4 (82,324 triangles, adaptive
+   C = 512, P = 256): the checks of step 5, K1 against its plain version
+   on SAMPLE_TILES sampled tiles, one sample's trace calls and
+   PATH_WINDOWS windows of PATH_SPP spp;
+8. resident_wide (K1): colonnade subdiv 5 (328,084 triangles) at its
    default adaptive C = 1024, P = 128: the same;
-7. stream (K2): colonnade subdiv 6 (1,311,124 triangles, adaptive C = 1024,
+9. stream (K2): colonnade subdiv 6 (1,311,124 triangles, adaptive C = 1024,
    flat cull past the resident budget): K2 against its plain version on
    sampled tiles, K2 against K1 bit for bit on the full batches, timed in
    turns (K1, K2, K2, K1), both counting instances, K2's clusters folded
-   against a plain count of its block schedule, the windows;
-8. super (K3): colonnade subdiv 5, C = 256, two_level_cull="super",
+   against a plain count of its block schedule, the windows; then
+   stream_mt, the same with K2's MT instance and MT_VARIANT_WINDOWS
+   windows;
+10. super (K3): colonnade subdiv 5, C = 256, two_level_cull="super",
    super_factor 8, super_list 255: the same steps, with K1 on the flat
-   shortlists of the same rays beside K3;
-9. bdpt (K1): colonnade subdiv 3, BDPT at 512x512 (the JAX bench's BDPT
-   configuration, one sample a batch). The checks of step 4 on one
+   shortlists of the same rays beside K3; then super_mt with K3's MT
+   instance;
+11. bdpt (K1): colonnade subdiv 3, BDPT at 512x512 (the JAX bench's BDPT
+   configuration, one sample a batch). The checks of step 5 on one
    sample's three batches: the primary (R rays; K1 against its plain
    version on the full batch), the joint subpath batch (2R) and the
    connection batch (4R, capped at each segment's length + 2 eps; its
    shortlists carry the caps). Then the visibility instances of K1, K2
-   and K3 (super shortlists of 8) on the connection rays, each against its
-   closest-hit instance on the whole batch and its plain version on
-   sampled tiles, timed beside it in turns, and the packet engine's
-   visibility decisions against its closest-hit ones; one sample's trace
-   calls; PATH_WINDOWS windows of 8 spp with vis_dropout off and on in
-   turns, whose images must be bit-identical, K1 alone launching.
+   and K3 (super shortlists of 8, with their bound) on the connection
+   rays, each against its closest-hit instance on the whole batch and its
+   plain version on sampled tiles, timed beside it in turns, and the
+   packet engine's visibility decisions against its closest-hit ones; one
+   sample's trace calls; PATH_WINDOWS windows of 8 spp with vis_dropout
+   off and on in turns, whose images must be bit-identical, K1 alone
+   launching.
 
 Each render path runs with every kernel's launch count and every plain
 version's call count set to 0 just before its timed windows and read just
 after; the path's kernel must have launched and nothing else may have run.
 A kernel's bound is the larger of the bytes its inputs need over the card's
 memory rate and the float32 operations of the ray-triangle tests they need
-over its float32 rate (``ops/kernels/work.py:needed_work``). A kernel's
+over its float32 rate (``ops/kernels/work.py:needed_work``, with the
+intersector's operations per test, ``OPS_PER_TEST``). A kernel's
 counting instance gives the clusters it folded (once per group of rays that
 folds one: K1's blocks of 128 rays, K2's block per tile, K3's members),
 the lane tests it issued (a lane test is one test body run by one lane, its
@@ -66,8 +87,10 @@ and fold_fraction is folded over (group, slot) pairs listed. Counting
 launches are not timed and are not the path's. Each phase prints lines of
 its own; any failure raises. The line before the last is a JSON summary of
 the kernels (one K1 entry per resident path, with the bounce batch's
-numbers, and dense_resident/bdpt with the connection batch's and the
-visibility instances' times), the last line the device record.
+numbers, dense_resident_mt/mt, dense_mt and dense_super_mt for the
+Moller-Trumbore instances, and dense_resident/bdpt with the connection
+batch's numbers and the visibility instances' times), the last line the
+device record.
 
 Run: python3 chip_smoke.py
 """
@@ -86,8 +109,7 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-GOLDEN = os.path.join(REPO, "tests", "goldens", "cornell_pt_nee_64_spp16.ppm")
-GOLDEN_BDPT = os.path.join(REPO, "tests", "goldens", "cornell_bdpt_32_spp8.ppm")
+GOLDENS = os.path.join(REPO, "tests", "goldens")
 HEADLINE_SIZE = 1024
 HEADLINE_SPP = 4
 HEADLINE_WINDOWS = 5
@@ -101,6 +123,20 @@ BDPT_SPP = 8
 BDPT_SUPER_F = 8
 SAMPLE_TILES = 512
 FALLBACK_SIZE = 64
+# the mt path: windows of 4 spp, 3 of them; the MT variants of the stream
+# and super paths: 2 windows of PATH_SPP
+MT_SPP = 4
+MT_WINDOWS = 3
+MT_VARIANT_WINDOWS = 2
+# the bvh and brute engines' Cornell render
+ENGINE_SIZE = 32
+ENGINE_SPP = 4
+# Moller-Trumbore against Baldwin-Weber on the same rays, the JAX package's
+# contract (tests/test_packets.py:364-386)
+MT_BW_RTOL = 2e-5
+MT_BW_FLIPS_MAX = 0.06
+# the visibility band of the mt path's check: BDPT's 3 * EPS_VISIBILITY
+VIS_BAND = 0.03
 # kernel vs plain: ids may differ only on exact-t ties, as the JAX
 # package's own engines do
 ID_MISMATCH_MAX = 1e-5
@@ -109,8 +145,6 @@ T_RTOL = 1e-6
 # float32 operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
-# float32 operations of one Baldwin-Weber ray-triangle test, an FMA as 2
-OPS_PER_TEST = 35
 
 
 def check_golden(img, path, tol=2, max_frac=0.005):
@@ -171,10 +205,12 @@ def agreement(label, got, want, rays):
     return differ, max_abs
 
 
-def bound(tests, nbytes):
-    """(bound ms, "bytes" or "operations") on one H100."""
+def bound(tests, nbytes, ops_per_test):
+    """(bound ms, "bytes" or "operations") on one H100, for ``tests``
+    ray-triangle tests of ``ops_per_test`` float32 operations each
+    (``ops/kernels/work.py:OPS_PER_TEST``, an FMA as 2)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = tests * OPS_PER_TEST / PEAK_F32_PER_S * 1e3
+    t_ops = tests * ops_per_test / PEAK_F32_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
@@ -370,6 +406,21 @@ def kernel_entry(name, source, replaces, launches, res):
             "tests_issued": res["issued"], "tests_needed": res["needed"]}
 
 
+def band_caps(rays, t, best, seed=11):
+    """A capped batch's rays (Tl, 8, P) with each hitting ray's cap (row 7)
+    moved near its closest hit t: t + VIS_BAND * u, u from {-1, 0, 1, 2} or
+    uniform in [-1, 2] (tests/torch_fold_cases.py:band_caps), so that a
+    visibility query retires some rays and keeps others."""
+    rng = np.random.default_rng(seed)
+    shape = tuple(t.shape)
+    u = np.where(rng.random(shape) < 0.5, rng.integers(-1, 3, shape),
+                 rng.uniform(-1.0, 2.0, shape)).astype(np.float32)
+    cap = t + np.float32(VIS_BAND) * torch.from_numpy(u).to(t.device)
+    rays = rays.clone()
+    rays[:, 7] = torch.where(best >= 0, cap, rays[:, 7])
+    return rays.contiguous()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -392,13 +443,17 @@ def main():
     from cudapathtracer_tpu_torch.ops.kernels import dense as k2
     from cudapathtracer_tpu_torch.ops.kernels import dense_resident as k1
     from cudapathtracer_tpu_torch.ops.kernels import dense_super as k3
-    from cudapathtracer_tpu_torch.ops.kernels.work import needed_work
+    from cudapathtracer_tpu_torch.ops.kernels.dense_resident import (
+        intersector_of)
+    from cudapathtracer_tpu_torch.ops.kernels.work import (OPS_PER_TEST,
+                                                           needed_work)
     from cudapathtracer_tpu_torch.ops.rng import (pixel_keys, prng_key,
                                                   sample_key)
     from cudapathtracer_tpu_torch.render import renderer
     from cudapathtracer_tpu_torch.render.camera import camera_rays
     from cudapathtracer_tpu_torch.utils.build import BUILD_LOG
     from cudapathtracer_tpu_torch.utils.constants import EPS_VISIBILITY
+    from cudapathtracer_tpu_torch.utils.profiling import falsecolor_state
 
     kernels = {
         "k1": (k1.build, k1.dense_intersect_resident,
@@ -429,45 +484,100 @@ def main():
 
     base_key = prng_key(1234, dev)
 
-    # ---- 3. golden on the card ---------------------------------------------
-    gcfg = cpt.RenderConfig(width=64, height=64, spp=16,
-                            integrator="pt_nee", samples_per_call=16)
-    gst = cpt.render(procedural.to_scene(procedural.cornell_box(), dev),
-                     cpt.make_camera(width=64, height=64, device=dev), gcfg,
-                     seed=1234, device=dev)
-    frac = check_golden(cpt.finalize_image(gst, gcfg), GOLDEN)
-    print(f"golden: cornell_pt_nee_64_spp16 channels_off_by_more_than_2="
-          f"{frac:.4%} (limit 0.5%)")
-    # the default integrator, BDPT
-    bcfg = cpt.RenderConfig(width=32, height=32, spp=8, samples_per_call=8)
-    bst = cpt.render(procedural.to_scene(procedural.cornell_box(), dev),
-                     cpt.make_camera(width=32, height=32, device=dev), bcfg,
-                     seed=1234, device=dev)
-    frac = check_golden(cpt.finalize_image(bst, bcfg), GOLDEN_BDPT)
-    print(f"golden: cornell_bdpt_32_spp8 integrator={bcfg.integrator} "
-          f"channels_off_by_more_than_2={frac:.4%} (limit 0.5%)")
+    # ---- 3. the five goldens on the card -----------------------------------
+    def golden(name, scene, size, **cfg_kw):
+        cfg = cpt.RenderConfig(width=size, height=size, **cfg_kw)
+        st = cpt.render(scene, cpt.make_camera(width=size, height=size,
+                                               device=dev), cfg, seed=1234,
+                        device=dev)
+        frac = check_golden(cpt.finalize_image(st, cfg),
+                            os.path.join(GOLDENS, f"{name}.ppm"))
+        print(f"golden: {name} integrator={cfg.integrator} "
+              f"channels_off_by_more_than_2={frac:.4%} (limit 0.5%)")
 
-    def setup(label, subdiv, spp, size=HEADLINE_SIZE, integrator="pt_nee",
+    def cornell():
+        return procedural.to_scene(procedural.cornell_box(), dev)
+
+    golden("cornell_pt_nee_64_spp16", cornell(), 64, spp=16,
+           integrator="pt_nee", samples_per_call=16)
+    golden("cornell_pt_nee_128_spp8", cornell(), 128, spp=8,
+           integrator="pt_nee", samples_per_call=8)
+    # analytic spheres: ray_sphere on the card
+    golden("cornell_sphere_pt_nee_32_spp8",
+           procedural.cornell_with_analytic_sphere(device=dev), 32, spp=8,
+           integrator="pt_nee", samples_per_call=8)
+    # the default integrator, BDPT
+    golden("cornell_bdpt_32_spp8", cornell(), 32, spp=8, samples_per_call=8)
+    # the fine-BVH walk with its visit counts, on the card
+    fscene = procedural.to_scene(procedural.colonnade(subdiv=2), dev)
+    fcfg = cpt.RenderConfig(width=64, height=64, spp=1, samples_per_call=1,
+                            integrator="pt_nee")
+    fst, fstats = falsecolor_state(
+        fscene, renderer.build_bvh_for_scene(fscene, fcfg.leaf_size),
+        cpt.make_camera(pos=(0.0, 2.0, 3.4), width=64, height=64,
+                        focal_length=2.0, device=dev), fcfg, seed=1234)
+    frac = check_golden(cpt.finalize_image(fst, fcfg),
+                        os.path.join(GOLDENS,
+                                     "colonnade_bvh_falsecolor_64.ppm"))
+    print(f"golden: colonnade_bvh_falsecolor_64 walk_steps="
+          f"{int(fstats.steps)} max_ray_visits="
+          f"{int(fstats.ray_visits.max())} channels_off_by_more_than_2="
+          f"{frac:.4%} (limit 0.5%)")
+
+    # ---- 4. the bvh and brute engines: no fold kernel ----------------------
+    reset_counts(kernels)
+    imgs = {}
+    for tr in ("bvh", "brute"):
+        cfg = cpt.RenderConfig(width=ENGINE_SIZE, height=ENGINE_SIZE,
+                               spp=ENGINE_SPP, integrator="pt_nee",
+                               samples_per_call=ENGINE_SPP, traversal=tr)
+        st, ms = host_ms(lambda: cpt.render(
+            cornell(), cpt.make_camera(width=ENGINE_SIZE,
+                                       height=ENGINE_SIZE, device=dev),
+            cfg, seed=1234, device=dev))
+        imgs[tr] = torch.stack(list(st.img), dim=1)
+        print(f"engines: traversal={tr} {ENGINE_SIZE}x{ENGINE_SIZE} "
+              f"spp={ENGINE_SPP} wall_ms={ms:.1f}")
+    launched = {n: w.launches for n, (_, w, _) in kernels.items()}
+    plain_calls = sum(p.calls for _, _, p in kernels.values())
+    same = torch.equal(imgs["bvh"].view(torch.int32),
+                       imgs["brute"].view(torch.int32))
+    lit = bool(torch.isfinite(imgs["bvh"]).all()) and \
+        float(imgs["bvh"].max()) > 0
+    print(f"engines: bvh_vs_brute_bit_identical={same} finite_and_lit={lit} "
+          + " ".join(f"{n}_launches={v}" for n, v in launched.items())
+          + f" plain_calls={plain_calls}")
+    if not (same and lit) or any(launched.values()) or plain_calls:
+        raise AssertionError("the bvh and brute engines' images differ, or "
+                             "a fold kernel ran")
+
+    def setup(label, subdiv, size=HEADLINE_SIZE, integrator="pt_nee",
               **cfg_kw):
         scene = procedural.to_scene(procedural.colonnade(subdiv=subdiv), dev)
-        cfg = cpt.RenderConfig(width=size, height=size, spp=spp,
-                               integrator=integrator, samples_per_call=spp,
+        cfg = cpt.RenderConfig(width=size, height=size, spp=PATH_SPP,
+                               integrator=integrator,
+                               samples_per_call=PATH_SPP,
                                reuse_primary_hit=True, **cfg_kw)
         t0 = time.perf_counter()
         bvh = renderer.build_bvh_for_scene(scene, cfg.leaf_size,
                                            cluster_size=cfg.cluster_size)
-        prep = renderer.make_packet_prep(scene, bvh)
         torch.cuda.synchronize()
         t_accel = time.perf_counter() - t0
         cam = cpt.make_camera(pos=(0.0, 2.0, 3.4), width=size, height=size,
                               focal_length=2.0, device=dev)
-        pd = prep.pdata
         P = renderer.resolve_tile_size(cfg, scene.num_tris)
-        kern = packets.route(pd.num_clusters, pd.cluster_size,
-                             cfg.two_level_cull, cfg.super_factor)
-        print(f"{label}: scene tris={scene.num_tris} clusters="
-              f"{pd.num_clusters} C={pd.cluster_size} P={P} route={kern} "
-              f"accel_s={t_accel:.2f}")
+        K, C = bvh.cl_tri.shape
+        kern = packets.route(K, C, cfg.two_level_cull, cfg.super_factor)
+        print(f"{label}: scene tris={scene.num_tris} clusters={K} C={C} "
+              f"P={P} route={kern} accel_s={t_accel:.2f}")
+        return scene, cfg, bvh, cam, P, kern
+
+    def variant(scene, cfg, bvh, cam, spp, intersector):
+        """One intersector's render of a path: its config, packet prep
+        (the intersector's pack), trace closure and window."""
+        cfg = dataclasses.replace(cfg, spp=spp, samples_per_call=spp,
+                                  intersector=intersector)
+        prep = renderer.make_packet_prep(scene, bvh, intersector)
         trace_fn = renderer.make_trace_fn(scene, cfg, bvh, prep=prep)
 
         def window():
@@ -475,7 +585,7 @@ def main():
                                     cpt.init_accum(cfg, device=dev), spp,
                                     prep=prep)
 
-        return scene, cfg, bvh, prep, cam, P, kern, trace_fn, window
+        return cfg, prep, trace_fn, window
 
     def schedule_check(label, name, fn, part, pack, group):
         """The counting instance's clusters folded on the sampled tiles
@@ -494,15 +604,26 @@ def main():
             raise AssertionError(f"{label}: {name} did not fold what its "
                                  "schedule folds")
 
-    def check_batch(label, want, batch, scene, prep, cfg, P, F, full_plain):
+    def check_batch(label, want, batch, scene, prep, cfg, P, F, full_plain,
+                    equal_flat=False):
         """One batch of one path: the kernel against its plain version, its
         yardstick on the same rays timed in turns (K1: K2 on the same
         shortlists, which must agree bit for bit; K2: K1, the same; K3: K1
-        on the flat shortlists), both counting instances, the schedule's
-        folds and the bound. -> the numbers of the kernel's JSON entry."""
-        _, wrapper, plain = kernels[want]
+        on the flat shortlists, bit for bit too with ``equal_flat``), both
+        counting instances, the schedule's folds and the bound; every
+        kernel with the pack's intersector. -> the numbers of the kernel's
+        JSON entry."""
+        isect = cfg.intersector
+        _, wrap, plain = kernels[want]
         other = "k2" if want == "k1" else "k1"
         _, owrap, _ = kernels[other]
+
+        def wrapper(*a, **kw):
+            return wrap(*a, intersector=isect, **kw)
+
+        def owrapper(*a, **kw):
+            return owrap(*a, intersector=isect, **kw)
+
         extra = (F,) if F else ()
         pd, pack = prep.pdata, prep.resident_pack
         sl, sl_ms = host_ms(lambda: sorted_shortlists(batch, pd, P, cfg,
@@ -511,13 +632,13 @@ def main():
         got = wrapper(*args, *extra)
         flat = sorted_shortlists(batch, pd, P, cfg) if F else sl
         oargs = (flat.ids, flat.counts, flat.entries, flat.rays, *pack)
-        ref = owrap(*oargs)
+        ref = owrapper(*oargs)
         (o_a, o_b), (ms_a, ms_b) = in_turns(
-            lambda: owrap(*oargs), lambda: wrapper(*args, *extra), 3)
+            lambda: owrapper(*oargs), lambda: wrapper(*args, *extra), 3)
         ms, o_ms = (ms_a + ms_b) / 2, (o_a + o_b) / 2
         same = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
         print(f"kernel[{label}]: {want} vs {other} on all {sl.ids.shape[0]} "
-              f"tiles: bit_identical={same} "
+              f"tiles ({isect}): bit_identical={same} "
               f"differing_ids={int((got[1] != ref[1]).sum())} "
               f"{want}_ms={ms:.4f} ({ms_a:.4f}, {ms_b:.4f}) "
               f"{other}_ms={o_ms:.4f} ({o_a:.4f}, {o_b:.4f}; in turns "
@@ -526,7 +647,7 @@ def main():
               f"{'flat' if F else 'same'} shortlists)")
         # K1 and K2 fold one function on one input; K3 and K1 fold
         # different lists, each exact against the plain fold
-        if not F and not same:
+        if (not F or equal_flat) and not same:
             raise AssertionError(f"{label}: {want} and {other} differ")
         part = sl if full_plain else sample_tiles(sl, SAMPLE_TILES)
         pargs = (part.ids, part.counts, part.entries, part.rays, *pack)
@@ -538,13 +659,14 @@ def main():
             part.rays)
         tests, touched, nbytes = needed_work(sl, got[0], pack,
                                              scene.num_tris, F)
-        bnd = bound(tests, nbytes)
+        bnd = bound(tests, nbytes, OPS_PER_TEST[intersector_of(pack[0])])
         print(f"kernel[{label}]: tiles={sl.ids.shape[0]} "
               f"slots={sl.ids.shape[1]} "
               f"mean_count={float(sl.counts.float().mean()):.2f} "
               f"{want}_ms={ms:.4f} plain_ms={plain_ms:.1f} (on "
               f"{part.ids.shape[0]} tiles) sort_cull_topk_ms={sl_ms:.3f} "
               f"tests={tests} clusters_touched={touched} bytes={nbytes} "
+              f"ops_per_test={OPS_PER_TEST[isect]} "
               f"bound_ms={bnd[0]:.4f} bound_by={bnd[1]}")
         # the counting instances; K1 counts a cluster once per block of up
         # to 128 rays that folds it, K3 per member
@@ -556,7 +678,7 @@ def main():
             int(sl.counts.sum()) * groups[want], tests)
         o_needed = (needed_work(flat, ref[0], pack, scene.num_tris)[0] if F
                     else tests)
-        fold_counts(f"fold[{label}]", other, owrap, oargs, ref,
+        fold_counts(f"fold[{label}]", other, owrapper, oargs, ref,
                     int(flat.counts.sum()) * groups[other], o_needed)
         if not F:
             schedule_check(
@@ -567,6 +689,87 @@ def main():
                     tiles=sl.ids.shape[0], plain_tiles=part.ids.shape[0],
                     issued=issued, needed=tests)
 
+    def fallback_check(label, scene, bvh, prep, P, intersector):
+        """The fine-BVH fallback on the card: 64x64 primary rays through
+        the packet engine with a one-cluster shortlist, so that the
+        fallback walk runs; the hits must equal brute force's, both with
+        ``intersector``."""
+        pd, fs = prep.pdata, FALLBACK_SIZE
+        fidx = torch.arange(fs * fs, dtype=torch.int64, device=dev)
+        fcam = cpt.make_camera(pos=(0.0, 2.0, 3.4), width=fs, height=fs,
+                               focal_length=2.0, device=dev)
+        fo, fd = camera_rays(fcam, fidx, pixel_keys(
+            sample_key(base_key, 0), fidx), lens=False)
+        fmask = torch.ones(fs * fs, dtype=torch.bool, device=dev)
+        hit = packets.trace_packets(
+            fo, fd, pd, fine_td=traversal.make_trace_data(scene, bvh.fine),
+            mask=fmask, tile_size=P, max_clusters=1,
+            resident_pack=prep.resident_pack, intersector=intersector)
+        brute = traversal.trace_bruteforce(fo, fd, scene,
+                                           intersector=intersector)
+        # unsorted, so the tiles are those of build_shortlists in ray
+        # order; a ray took the fallback exactly when its final t is not
+        # below U
+        u = packets.build_shortlists(fo, fd, fmask, pd, P, 1).U
+        n_fb = int((hit.t >= u.repeat_interleave(P)[:fs * fs]).sum())
+        id_bad = int((hit.tri != brute.tri).sum())
+        t_bad = int((hit.t != brute.t).sum())
+        print(f"fallback[{label}]: intersector={intersector} rays="
+              f"{fs * fs} max_clusters=1 fallback_rays={n_fb} "
+              f"id_mismatches={id_bad} t_mismatches={t_bad}")
+        if n_fb == 0 or id_bad or t_bad:
+            raise AssertionError("the fallback did not run, or its hits "
+                                 "differ from brute force")
+
+    def mt_holds(label, batch, scene, bvh, prep, cfg, P):
+        """The mt path's own holds on one batch (its bounce batch): K3's
+        Moller-Trumbore instance on super shortlists of BDPT_SUPER_F
+        clusters against its plain version and, bit for bit, K1's on the
+        flat shortlists; Moller-Trumbore against Baldwin-Weber on the same
+        rays (t within MT_BW_RTOL where both hit, hit/miss flips under
+        MT_BW_FLIPS_MAX of the live rays); K1's Moller-Trumbore visibility
+        instance with caps near each ray's hit, t bit for bit its
+        closest-hit instance's with -3e38 exactly below the floor."""
+        check_batch(f"{label}/super{BDPT_SUPER_F}", "k3", batch, scene, prep,
+                    cfg, P, BDPT_SUPER_F, False, equal_flat=True)
+        pd, pack = prep.pdata, prep.resident_pack
+        sl = sorted_shortlists(batch, pd, P, cfg)
+        head = (sl.ids, sl.counts, sl.entries)
+        tm, im = k1.dense_intersect_resident(*head, sl.rays, *pack,
+                                             intersector="mt")
+        tb, ib = k1.dense_intersect_resident(
+            *head, sl.rays, *k1.pack_clusters(pd, "bw"))
+        live = sl.rays[:, 6] > 0.5
+        both = live & (im >= 0) & (ib >= 0)
+        rel = float(((tm - tb).abs() / tb.abs())[both].max())
+        flips = int((live & ((im >= 0) != (ib >= 0))).sum())
+        n_live = int(live.sum())
+        print(f"mt_vs_bw[{label}]: live_rays={n_live} both_hit="
+              f"{int(both.sum())} max_rel_dt={rel:.3g} (limit {MT_BW_RTOL}) "
+              f"hit_miss_flips={flips} ({flips / n_live:.4%}, limit "
+              f"{MT_BW_FLIPS_MAX:.0%}) differing_ids="
+              f"{int((both & (im != ib)).sum())}")
+        if rel > MT_BW_RTOL or flips >= MT_BW_FLIPS_MAX * n_live:
+            raise AssertionError(f"{label}: Moller-Trumbore and "
+                                 "Baldwin-Weber disagree")
+        rays = band_caps(sl.rays, tm, im)
+        args = (*head, rays, *pack)
+        closest = k1.dense_intersect_resident(*args, intersector="mt")
+        vis = k1.dense_intersect_resident(*args, vis_band=VIS_BAND,
+                                          intersector="mt")
+        want = torch.where(closest[0] < rays[:, 7] - VIS_BAND,
+                           k1.MASKED_T_INIT, closest[0])
+        keep = vis[0] != k1.MASKED_T_INIT
+        whole = (torch.equal(vis[0].view(torch.int32),
+                             want.view(torch.int32))
+                 and torch.equal(vis[1][keep], closest[1][keep]))
+        print(f"vis[{label}]: k1 mt live_rays={n_live} "
+              f"retired={int((~keep & live).sum())} "
+              f"t_bit_identical_to_closest_below_floor={whole}")
+        if not whole or int((~keep & live).sum()) == 0:
+            raise AssertionError(f"{label}: K1's Moller-Trumbore visibility "
+                                 "instance differs")
+
     def vis_instances(label, batch, scene, prep, cfg, P, bvh):
         """The visibility instances of K1, K2 (on the flat shortlists) and
         K3 (on super shortlists of BDPT_SUPER_F clusters) on one capped
@@ -575,10 +778,11 @@ def main():
         cap - vis_band, ids the closest hit's elsewhere (whole batch); t and
         the kept ids equal to the plain visibility version (sampled tiles);
         K1's and K2's folds equal to the plain count of their schedule with
-        retirement; both instances timed in turns. Then the packet engine's
-        visibility query against its closest-hit query on the same rays:
-        every decision |t - len| <= eps equal, with len = t_cap - 2 eps.
-        -> the ms of each instance, for the JSON line."""
+        retirement; both instances timed in turns; K3's bound on the super
+        lists. Then the packet engine's visibility query against its
+        closest-hit query on the same rays: every decision |t - len| <= eps
+        equal, with len = t_cap - 2 eps. -> the ms of each instance, and
+        K3's bound, for the JSON line."""
         band = 3.0 * EPS_VISIBILITY
         pd, pack = prep.pdata, prep.resident_pack
         F = BDPT_SUPER_F
@@ -624,6 +828,14 @@ def main():
                 folds = (f" clusters_folded={int(counts[:, 0].sum())} "
                          f"plain_schedule={int(sched.sum())} (groups of "
                          f"{group}, {part.ids.shape[0]} sampled tiles)")
+            else:
+                # the closest-hit query's work on the super lists
+                tests, _, nbytes = needed_work(sl, closest[0], pack,
+                                               scene.num_tris, F)
+                bnd = bound(tests, nbytes, OPS_PER_TEST["bw"])
+                out["k3_vis_bound_ms"] = bnd[0]
+                folds = (f" tests_needed={tests} bound_ms={bnd[0]:.4f} "
+                         f"bound_by={bnd[1]}")
             (c_a, c_b), (v_a, v_b) = in_turns(
                 lambda: wrapper(*args, *extra),
                 lambda: wrapper(*args, *extra, vis_band=band), 3)
@@ -716,88 +928,85 @@ def main():
                                  "finite and lit")
         return launches["k1"]
 
-    # ---- 4.-8. the render paths --------------------------------------------
+    # ---- 5.-9. the render paths --------------------------------------------
     resident_src = "cudapathtracer_tpu/ops/pallas/dense_resident.py:999"
+    super_cfg = dict(cluster_size=256, two_level_cull="super",
+                     super_factor=8, super_list=255)
     paths = (
-        # label, subdiv, RenderConfig knobs, route, kernel, spp, windows
+        # label, subdiv, RenderConfig knobs, route, kernel, spp, windows,
+        # the Moller-Trumbore variant: (label, spp, windows) or None
         ("headline", 3, {}, "resident", "k1", HEADLINE_SPP,
-         HEADLINE_WINDOWS),
-        ("resident_82k", 4, {}, "resident", "k1", PATH_SPP, PATH_WINDOWS),
-        ("resident_wide", 5, {}, "resident", "k1", PATH_SPP, PATH_WINDOWS),
-        ("stream", 6, {}, "stream", "k2", PATH_SPP, PATH_WINDOWS),
-        ("super", 5, dict(cluster_size=256, two_level_cull="super",
-                          super_factor=8, super_list=255), "super", "k3",
-         PATH_SPP, PATH_WINDOWS),
+         HEADLINE_WINDOWS, ("mt", MT_SPP, MT_WINDOWS)),
+        ("resident_82k", 4, {}, "resident", "k1", PATH_SPP, PATH_WINDOWS,
+         None),
+        ("resident_wide", 5, {}, "resident", "k1", PATH_SPP, PATH_WINDOWS,
+         None),
+        ("stream", 6, {}, "stream", "k2", PATH_SPP, PATH_WINDOWS,
+         ("stream_mt", PATH_SPP, MT_VARIANT_WINDOWS)),
+        ("super", 5, super_cfg, "super", "k3", PATH_SPP, PATH_WINDOWS,
+         ("super_mt", PATH_SPP, MT_VARIANT_WINDOWS)),
     )
     sources = {"k1": ("dense_resident", "dense_resident.cu", resident_src),
                "k2": ("dense", "dense.cu",
                       "cudapathtracer_tpu/ops/pallas/dense.py:343"),
                "k3": ("dense_super", "dense_super.cu",
                       "cudapathtracer_tpu/ops/pallas/dense_resident.py:913")}
+    mt_pallas = {"k1": "cudapathtracer_tpu/ops/pallas/dense_resident.py:1107",
+                 "k2": "cudapathtracer_tpu/ops/pallas/dense.py:424",
+                 "k3": "cudapathtracer_tpu/ops/pallas/dense_resident.py:983"}
     entries = []
-    for label, subdiv, cfg_kw, route, want, spp, windows in paths:
-        (scene, cfg, bvh, prep, cam, P, kern, trace_fn,
-         window) = setup(label, subdiv, spp, **cfg_kw)
+    for (label, subdiv, cfg_kw, route, want, spp, windows,
+         mt_variant) in paths:
+        scene, cfg0, bvh, cam, P, kern = setup(label, subdiv, **cfg_kw)
         if kern != route:
             raise AssertionError(f"{label} path took the {kern} route, "
                                  f"expected {route}")
-        F = cfg.super_factor if route == "super" else None
-        batches = record_batches(scene, trace_fn, cam, cfg, base_key)
-        res, gaps = {}, []
-        for bname, batch in batches.items():
-            res = check_batch(f"{label}/{bname}", want, batch, scene, prep,
-                              cfg, P, F, full_plain=label == "headline")
-            gaps.append(res["max_abs"])
-        # the JSON line keeps the bounce batch's numbers and the largest gap
-        # to the plain version over both batches
-        res["max_abs"] = max(gaps)
-
-        if label == "headline":
-            # fine-BVH fallback: 64x64 primary rays through the packet
-            # engine with a one-cluster shortlist, so the fallback runs on
-            # the card; the hits must equal brute force's
-            pd, fs = prep.pdata, FALLBACK_SIZE
-            fidx = torch.arange(fs * fs, dtype=torch.int64, device=dev)
-            fcam = cpt.make_camera(pos=(0.0, 2.0, 3.4), width=fs, height=fs,
-                                   focal_length=2.0, device=dev)
-            fo, fd = camera_rays(fcam, fidx, pixel_keys(
-                sample_key(base_key, 0), fidx), lens=False)
-            fmask = torch.ones(fs * fs, dtype=torch.bool, device=dev)
-            hit = packets.trace_packets(
-                fo, fd, pd, fine_td=traversal.make_trace_data(scene,
-                                                              bvh.fine),
-                mask=fmask, tile_size=P, max_clusters=1,
-                resident_pack=prep.resident_pack)
-            brute = traversal.trace_bruteforce(fo, fd, scene)
-            # unsorted, so the tiles are those of build_shortlists in ray
-            # order; a ray took the fallback exactly when its final t is not
-            # below U
-            u = packets.build_shortlists(fo, fd, fmask, pd, P, 1).U
-            n_fb = int((hit.t >= u.repeat_interleave(P)[:fs * fs]).sum())
-            id_bad = int((hit.tri != brute.tri).sum())
-            t_bad = int((hit.t != brute.t).sum())
-            print(f"fallback: rays={fs * fs} max_clusters=1 "
-                  f"fallback_rays={n_fb} id_mismatches={id_bad} "
-                  f"t_mismatches={t_bad}")
-            if n_fb == 0 or id_bad or t_bad:
-                raise AssertionError("the fallback did not run, or its hits "
-                                     "differ from brute force")
-
-        trace_breakdown(label, scene, trace_fn, cam, cfg, base_key)
-        launches = render_windows(label, kernels, want, window, cfg, spp,
-                                  windows)
-        name, source, replaces = sources[want]
-        entries.append(kernel_entry(
-            f"{name}/{label}" if want == "k1" else name, source, replaces,
-            launches, res))
-        del scene, bvh, prep, trace_fn, window, batches
+        F = cfg0.super_factor if route == "super" else None
+        variants = [(label, "bw", spp, windows)]
+        if mt_variant:
+            variants.append((mt_variant[0], "mt", *mt_variant[1:]))
+        for lab, isect, vspp, vwin in variants:
+            cfg, prep, trace_fn, window = variant(scene, cfg0, bvh, cam,
+                                                  vspp, isect)
+            batches = record_batches(scene, trace_fn, cam, cfg, base_key)
+            res, gaps = {}, []
+            for bname, batch in batches.items():
+                # the plain version on the full batch: the headline's
+                # batches and the mt path's primary; else sampled tiles
+                full = lab == "headline" or (lab == "mt"
+                                             and bname == "primary")
+                res = check_batch(f"{lab}/{bname}", want, batch, scene, prep,
+                                  cfg, P, F, full_plain=full)
+                gaps.append(res["max_abs"])
+            # the JSON line keeps the bounce batch's numbers and the largest
+            # gap to the plain version over both batches
+            res["max_abs"] = max(gaps)
+            if lab == "headline":
+                fallback_check(lab, scene, bvh, prep, P, "bw")
+            if lab == "mt":
+                mt_holds(f"{lab}/bounce1", batches["bounce1"], scene, bvh,
+                         prep, cfg, P)
+                fallback_check(lab, scene, bvh, prep, P, "mt")
+            trace_breakdown(lab, scene, trace_fn, cam, cfg, base_key)
+            launches = render_windows(lab, kernels, want, window, cfg, vspp,
+                                      vwin)
+            name, source, replaces = sources[want]
+            if isect == "mt":
+                name, replaces = f"{name}_mt", mt_pallas[want]
+            entries.append(kernel_entry(
+                f"{name}/{lab}" if want == "k1" else name, source, replaces,
+                launches, res))
+            del prep, trace_fn, window, batches
+        del scene, bvh
         torch.cuda.empty_cache()
 
-    # ---- 9. bdpt: the default integrator at the JAX bench's BDPT size ------
-    (scene, cfg, bvh, prep, cam, P, kern, trace_fn,
-     window) = setup("bdpt", 3, BDPT_SPP, size=BDPT_SIZE, integrator="bdpt")
+    # ---- 10. bdpt: the default integrator at the JAX bench's BDPT size -----
+    scene, cfg, bvh, cam, P, kern = setup("bdpt", 3, size=BDPT_SIZE,
+                                          integrator="bdpt")
     if kern != "resident":
         raise AssertionError(f"bdpt path took the {kern} route")
+    cfg, prep, trace_fn, window = variant(scene, cfg, bvh, cam, BDPT_SPP,
+                                          "bw")
     batches = record_batches(scene, trace_fn, cam, cfg, base_key)
     R = cfg.num_pixels
     sizes = {n: b[0].x.shape[0] for n, b in batches.items()}

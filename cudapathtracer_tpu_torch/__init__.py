@@ -2,8 +2,9 @@
 
 A port of ``cudapathtracer_tpu`` (JAX and Pallas on a TPU), which stays the
 reference every part of this package is tested against. The port renders
-the PT+NEE integrator through the packet engine, whose dense cluster kernel
-is written in CUDA C++ for the H100 (csrc/dense_resident.cu). It imports
+BDPT and PT+NEE through the packet engine, whose three dense cluster
+kernels are written in CUDA C++ for the H100 (csrc/), or through the
+fine-BVH walk or brute force, with either triangle intersector. It imports
 torch and numpy, never jax.
 
 Every constructor takes an explicit ``device``; the packet engine runs the

@@ -1,10 +1,12 @@
 // Device functions shared by the three dense cluster kernels (K1
 // dense_resident.cu, K2 dense.cu, K3 dense_super.cu): the ray's state, the
-// per-ray cluster box gate and the Baldwin-Weber test of one ray against
-// one triangle.
+// per-ray cluster box gate and the two tests of one ray against one
+// triangle, Baldwin-Weber (bw_test, on the precomputed rows n, v0, m1, m2)
+// and Moller-Trumbore (mt_test, on v0, e1, e2: the reference's own test,
+// modelLoader.h:49-123).
 //
-// Every kernel tests through bw_test, built with -fmad=false, so they round
-// alike: the test forms, with __fmaf_rn, exactly the fused multiply-adds
+// Every kernel tests through these, built with -fmad=false, so they round
+// alike: each test forms, with __fmaf_rn, exactly the fused multiply-adds
 // that XLA forms for the JAX package's formulas, the plain PyTorch version
 // (ops/kernels/dense_resident.py) emulates them exactly, and the compiler
 // fuses nothing else. All three fold through gated_fold.cuh.
@@ -18,7 +20,6 @@ namespace bwfold {
 constexpr float kMaxFloat = 100000.0f;       // reference miss sentinel
 constexpr float kEpsParallel = 1e-5f;        // modelLoader.h:64
 constexpr float kMaskedInit = -3.0e38f;      // masked lanes never update
-constexpr int kRows = 12;                    // n, v0, m1, m2 (xyz each)
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz;
@@ -98,6 +99,45 @@ __device__ __forceinline__ float bw_test(const Tri& q, float ox, float oy,
   const bool reject = parallel || bu < 0.0f || bv < 0.0f || bw < 0.0f
                       || tt <= 0.0f;
   return reject ? kMaxFloat : tt;
+}
+
+// One triangle's 9 Moller-Trumbore rows: v0, e1 = v1 - v0, e2 = v2 - v0.
+struct TriMT {
+  float vx, vy, vz, ax, ay, az, bx, by, bz;
+};
+
+// The ray's hit distance on triangle q by Moller-Trumbore (the JAX
+// package's _mt_fold_pc, dense_resident.py:198-247), or MAX_FLOAT where it
+// misses. Its fused multiply-adds are XLA's for those formulas, which are
+// ops/vecmath.py's cross and dot: a.y*b.z - a.z*b.y as
+// fma(a.y, b.z, -(a.z*b.y)), a dot as fma(a.z, b.z, fma(a.x, b.x, a.y*b.y)).
+// 1/a is unguarded: where |a| < EPS_PARALLEL the lane rejects, and a NaN
+// from a = 0 never escapes a comparison.
+__device__ __forceinline__ float mt_test(const TriMT& q, float ox, float oy,
+                                         float oz, float dx, float dy,
+                                         float dz) {
+  // q = d x e2
+  const float px = __fmaf_rn(dy, q.bz, -(dz * q.by));
+  const float py = __fmaf_rn(dz, q.bx, -(dx * q.bz));
+  const float pz = __fmaf_rn(dx, q.by, -(dy * q.bx));
+  const float a = __fmaf_rn(q.az, pz, __fmaf_rn(q.ax, px, q.ay * py));
+  const bool parallel = fabsf(a) < kEpsParallel;
+  const float inv_a = 1.0f / a;
+  // s = (o - v0) / a, r = s x e1
+  const float sx = (ox - q.vx) * inv_a;
+  const float sy = (oy - q.vy) * inv_a;
+  const float sz = (oz - q.vz) * inv_a;
+  const float rx = __fmaf_rn(sy, q.az, -(sz * q.ay));
+  const float ry = __fmaf_rn(sz, q.ax, -(sx * q.az));
+  const float rz = __fmaf_rn(sx, q.ay, -(sy * q.ax));
+  const float b0 = __fmaf_rn(sz, pz, __fmaf_rn(sx, px, sy * py));
+  const float b1 = __fmaf_rn(rz, dz, __fmaf_rn(rx, dx, ry * dy));
+  const float b2 = 1.0f - b0 - b1;
+  const float t = __fmaf_rn(q.bz, rz, __fmaf_rn(q.bx, rx, q.by * ry));
+  // all-zero padding and sentinel triangles have e1 = e2 = 0: a = 0
+  const bool reject = parallel || b0 < 0.0f || b1 < 0.0f || b2 < 0.0f
+                      || t <= 0.0f;
+  return reject ? kMaxFloat : t;
 }
 
 }  // namespace bwfold

@@ -56,6 +56,13 @@
 // (dense_resident.py:330-347), gated_fold.cuh's note. A ray whose t falls
 // below cap - vis_band retires at that member's merge, so it stops gating,
 // folding and holding its block's exit vote open.
+//
+// Moller-Trumbore instance (a pack of 9 rows, the intersector "mt"): the TPU
+// kernel's other test body, _mt_fold_pc (dense_resident.py:198-247), which
+// dense_resident.py:1107 picks with bw=False, through gated_fold.cuh's MT
+// policy and bw_fold.cuh:mt_test. The fold is the same; a test costs 47
+// arithmetic operations against Baldwin-Weber's 33 and loads 9 rows instead of
+// 12.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,7 +74,7 @@ namespace {
 // rays per block at most (ops/kernels/dense_resident.py:K1_BLOCK_RAYS)
 constexpr int kBlockRays = 128;
 
-template <bool kCount, bool kVis>
+template <class Test, bool kCount, bool kVis>
 __global__ void dense_resident_kernel(
     const int32_t* __restrict__ ids, const int32_t* __restrict__ counts,
     const float* __restrict__ entries, const float* __restrict__ rays,
@@ -76,27 +83,26 @@ __global__ void dense_resident_kernel(
     int32_t* __restrict__ tri_out, long long* __restrict__ counts_out,
     int M, int P, int C, int K, float vis_band) {
   // a slot is one cluster: F = 1
-  gfold::gated_tile<kCount, kVis>(ids, counts, entries, rays, packed, tri,
-                                  boxes, t_out, tri_out, counts_out, M, P, C,
-                                  1, K, vis_band);
+  gfold::gated_tile<Test, kCount, kVis>(ids, counts, entries, rays, packed,
+                                        tri, boxes, t_out, tri_out,
+                                        counts_out, M, P, C, 1, K, vis_band);
 }
 
-}  // namespace
-
-extern "C" int dense_resident_launch(
-    const void* ids, const void* counts, const void* entries,
-    const void* rays, const void* packed, const void* tri, const void* boxes,
-    void* t_out, void* tri_out, void* counts_out, int Tl, int M, int P,
-    int C, int K, float vis_band, void* stream) {
+template <class Test>
+int launch(const void* ids, const void* counts, const void* entries,
+           const void* rays, const void* packed, const void* tri,
+           const void* boxes, void* t_out, void* tri_out, void* counts_out,
+           int Tl, int M, int P, int C, int K, float vis_band, void* stream) {
   // blocks of B = min(kBlockRays, P) rays, halved until B divides P
   int B = kBlockRays < P ? kBlockRays : P;
   while (P % B != 0) B /= 2;
   // the instance per call: counting or timed, visibility or closest hit
   const bool vis = vis_band > 0.0f;
-  auto kernel = counts_out ? (vis ? &dense_resident_kernel<true, true>
-                                  : &dense_resident_kernel<true, false>)
-                           : (vis ? &dense_resident_kernel<false, true>
-                                  : &dense_resident_kernel<false, false>);
+  auto kernel =
+      counts_out ? (vis ? &dense_resident_kernel<Test, true, true>
+                        : &dense_resident_kernel<Test, true, false>)
+                 : (vis ? &dense_resident_kernel<Test, false, true>
+                        : &dense_resident_kernel<Test, false, false>);
   const size_t smem = gfold::shared_bytes(B, 1);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -111,4 +117,24 @@ extern "C" int dense_resident_launch(
       static_cast<int32_t*>(tri_out), static_cast<long long*>(counts_out),
       M, P, C, K, vis_band);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// `rows`, the pack's row count, picks the triangle test: 12 Baldwin-Weber,
+// 9 Moller-Trumbore.
+extern "C" int dense_resident_launch(
+    const void* ids, const void* counts, const void* entries,
+    const void* rays, const void* packed, const void* tri, const void* boxes,
+    void* t_out, void* tri_out, void* counts_out, int Tl, int M, int P,
+    int C, int K, int rows, float vis_band, void* stream) {
+  if (rows == gfold::BW::kRows)
+    return launch<gfold::BW>(ids, counts, entries, rays, packed, tri, boxes,
+                             t_out, tri_out, counts_out, Tl, M, P, C, K,
+                             vis_band, stream);
+  if (rows == gfold::MT::kRows)
+    return launch<gfold::MT>(ids, counts, entries, rays, packed, tri, boxes,
+                             t_out, tri_out, counts_out, Tl, M, P, C, K,
+                             vis_band, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

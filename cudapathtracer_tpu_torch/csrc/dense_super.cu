@@ -37,6 +37,13 @@
 // visibility instance (vis_band > 0) is _make_kernel_super's vis_band mode
 // (dense_resident.py:699-703), gated_fold.cuh's note: a ray that retires
 // inside a super gates again at -3e38 and passes no further member.
+//
+// Moller-Trumbore instance (a pack of 9 rows, the intersector "mt"): the TPU
+// kernel's other test body, _mt_fold_pc (dense_resident.py:198-247), which
+// dense_resident.py:983 picks with bw=False, through gated_fold.cuh's MT
+// policy and bw_fold.cuh:mt_test. The fold is the same; a test costs 47
+// arithmetic operations against Baldwin-Weber's 33 and loads 9 rows instead of
+// 12.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,7 +52,7 @@
 
 namespace {
 
-template <bool kCount, bool kVis>
+template <class Test, bool kCount, bool kVis>
 __global__ void dense_super_kernel(
     const int32_t* __restrict__ ids, const int32_t* __restrict__ counts,
     const float* __restrict__ entries, const float* __restrict__ rays,
@@ -53,25 +60,24 @@ __global__ void dense_super_kernel(
     const float* __restrict__ boxes, float* __restrict__ t_out,
     int32_t* __restrict__ tri_out, long long* __restrict__ counts_out,
     int M, int C, int F, int K, float vis_band) {
-  gfold::gated_tile<kCount, kVis>(ids, counts, entries, rays, packed, tri,
-                                  boxes, t_out, tri_out, counts_out, M,
-                                  blockDim.x, C, F, K, vis_band);
+  gfold::gated_tile<Test, kCount, kVis>(ids, counts, entries, rays, packed,
+                                        tri, boxes, t_out, tri_out,
+                                        counts_out, M, blockDim.x, C, F, K,
+                                        vis_band);
 }
 
-}  // namespace
-
-extern "C" int dense_super_launch(
-    const void* ids, const void* counts, const void* entries,
-    const void* rays, const void* packed, const void* tri, const void* boxes,
-    void* t_out, void* tri_out, void* counts_out, int Tl, int M, int P,
-    int C, int F, int K, float vis_band, void* stream) {
-  if (F < 1 || F > 32) return static_cast<int>(cudaErrorInvalidValue);
+template <class Test>
+int launch(const void* ids, const void* counts, const void* entries,
+           const void* rays, const void* packed, const void* tri,
+           const void* boxes, void* t_out, void* tri_out, void* counts_out,
+           int Tl, int M, int P, int C, int F, int K, float vis_band,
+           void* stream) {
   // the instance per call: counting or timed, visibility or closest hit
   const bool vis = vis_band > 0.0f;
-  auto kernel = counts_out ? (vis ? &dense_super_kernel<true, true>
-                                  : &dense_super_kernel<true, false>)
-                           : (vis ? &dense_super_kernel<false, true>
-                                  : &dense_super_kernel<false, false>);
+  auto kernel = counts_out ? (vis ? &dense_super_kernel<Test, true, true>
+                                  : &dense_super_kernel<Test, true, false>)
+                           : (vis ? &dense_super_kernel<Test, false, true>
+                                  : &dense_super_kernel<Test, false, false>);
   const size_t smem = gfold::shared_bytes(P, F);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -85,4 +91,25 @@ extern "C" int dense_super_launch(
       static_cast<int32_t*>(tri_out), static_cast<long long*>(counts_out),
       M, C, F, K, vis_band);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// `rows`, the pack's row count, picks the triangle test: 12 Baldwin-Weber,
+// 9 Moller-Trumbore.
+extern "C" int dense_super_launch(
+    const void* ids, const void* counts, const void* entries,
+    const void* rays, const void* packed, const void* tri, const void* boxes,
+    void* t_out, void* tri_out, void* counts_out, int Tl, int M, int P,
+    int C, int F, int K, int rows, float vis_band, void* stream) {
+  if (F < 1 || F > 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == gfold::BW::kRows)
+    return launch<gfold::BW>(ids, counts, entries, rays, packed, tri, boxes,
+                             t_out, tri_out, counts_out, Tl, M, P, C, F, K,
+                             vis_band, stream);
+  if (rows == gfold::MT::kRows)
+    return launch<gfold::MT>(ids, counts, entries, rays, packed, tri, boxes,
+                             t_out, tri_out, counts_out, Tl, M, P, C, F, K,
+                             vis_band, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

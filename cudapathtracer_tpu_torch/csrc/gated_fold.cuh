@@ -1,6 +1,6 @@
 // The gated, triangle-stationary fold shared by the dense cluster kernels:
-// the closest Baldwin-Weber hit of every ray of a tile over its
-// entry-sorted shortlist. gated_tile is the code of all three kernels, K1
+// the closest hit of every ray of a tile over its entry-sorted shortlist.
+// gated_tile is the code of all three kernels, K1
 // (dense_resident.cu), K2 (dense.cu) and K3 (dense_super.cu): a slot is a
 // super of F clusters consecutive in preorder (member sid =
 // min(slot * F + j, K)); K1 and K2 are the case F = 1. The whole block
@@ -14,19 +14,20 @@
 //     in shared memory (ballot), each entry its o, d, t at the member's start
 //     and its index. A member no ray passes costs no fold;
 //   * triangle-stationary fold: thread c takes triangle c of the member
-//     straight into registers (coalesced: the pack's rows are SoA, (K+1, 12,
-//     C)), then tests it against every listed ray, reading each ray with two
-//     16-byte broadcast loads from shared memory; the threads stride over
-//     the C triangles in rounds. Work per folded member is n_pass * C tests,
-//     not 32 * C per warp that holds one passing ray, and a test needs 2
-//     shared loads, not 13. The next round's triangle is loaded before this
-//     round's tests (a register double buffer), and the first round's before
-//     the list is complete;
-//   * padding triangles (the sentinel row's id T and a zero normal) are
-//     skipped: their test always rejects, and T, the largest id, never wins
-//     a tie. Where a third of a cluster is padding (C = 256 at colonnade
-//     subdiv 3 and 5) this spares whole warps, whose 1 / 0 would take the
-//     IEEE division's slow path in every test;
+//     straight into registers (coalesced: the pack's rows are SoA, (K+1,
+//     rows, C)), then tests it against every listed ray, reading each ray
+//     with two 16-byte broadcast loads from shared memory; the threads
+//     stride over the C triangles in rounds. Work per folded member is
+//     n_pass * C tests, not 32 * C per warp that holds one passing ray, and
+//     a test needs 2 shared loads, not 13. The next round's triangle is
+//     loaded before this round's tests (a register double buffer), and the
+//     first round's before the list is complete;
+//   * padding triangles (the sentinel row's id T with all-zero rows: a zero
+//     normal, or zero edges) are skipped: their test always rejects, and T,
+//     the largest id, never wins a tie. Where a third of a cluster is
+//     padding (C = 256 at colonnade subdiv 3 and 5) this spares whole
+//     warps, whose 1 / 0 would take the IEEE division's slow path in every
+//     test;
 //   * the closest hit is an exact 64-bit atomicMin in shared memory on each
 //     ray's key (fold_key): the key's signed order is the lexicographic
 //     order of (t, id), so the minimum is what a sequential
@@ -39,6 +40,10 @@
 //     the next member. The gate is monotone in t, so every
 //     member is folded for exactly the rays whose gate passes at their
 //     current t, in member order: what member-by-member gating folds.
+// The triangle test is a policy (BW, MT below: its rows, their load, the
+// padding skip and the test), picked per call by the pack's row count; the
+// visibility and counting flags are orthogonal to it, and each kernel
+// compiles the eight instances.
 // Occupancy: the wrappers build it with at most 64 registers a thread
 // (ops/kernels/dense_resident.py:GATED_FOLD_FLAGS), so an SM holds 1024
 // threads; uncapped, K3 took 82 and fit two blocks of 256 on an SM, and ran
@@ -94,8 +99,6 @@
 
 namespace gfold {
 
-using bwfold::kRows;
-
 constexpr int kCountCols = 7;
 enum Phase { kGateVote, kList, kWait, kTests, kMerge, kPhases };
 
@@ -145,33 +148,88 @@ __device__ __forceinline__ int32_t key_id(long long k) {
   return static_cast<int32_t>(static_cast<unsigned>(k)) - 1;
 }
 
-// Triangle c of a cluster whose rows start at `rows` (row k at k * C),
-// through the read-only cache.
-__device__ __forceinline__ bwfold::Tri load_tri_ldg(
-    const float* __restrict__ rows, int C, int c) {
-  bwfold::Tri q;
-  q.nx = __ldg(rows + 0 * C + c);
-  q.ny = __ldg(rows + 1 * C + c);
-  q.nz = __ldg(rows + 2 * C + c);
-  q.vx = __ldg(rows + 3 * C + c);
-  q.vy = __ldg(rows + 4 * C + c);
-  q.vz = __ldg(rows + 5 * C + c);
-  q.ax = __ldg(rows + 6 * C + c);
-  q.ay = __ldg(rows + 7 * C + c);
-  q.az = __ldg(rows + 8 * C + c);
-  q.bx = __ldg(rows + 9 * C + c);
-  q.by = __ldg(rows + 10 * C + c);
-  q.bz = __ldg(rows + 11 * C + c);
-  return q;
-}
+// The triangle tests as policies of the fold. Each gives its triangle
+// type, its rows in the pack, the load of triangle c of a cluster whose
+// rows start at `rows` (row k at k * C, through the read-only cache), the
+// sum of its fields (the counting instance's wait span), the padding skip
+// (the sentinel id T with rows on which the test rejects whatever the ray)
+// and the test.
+struct BW {                      // rows n, v0, m1, m2
+  using Tri = bwfold::Tri;
+  static constexpr int kRows = 12;
+  static __device__ __forceinline__ Tri load(const float* __restrict__ rows,
+                                             int C, int c) {
+    Tri q;
+    q.nx = __ldg(rows + 0 * C + c);
+    q.ny = __ldg(rows + 1 * C + c);
+    q.nz = __ldg(rows + 2 * C + c);
+    q.vx = __ldg(rows + 3 * C + c);
+    q.vy = __ldg(rows + 4 * C + c);
+    q.vz = __ldg(rows + 5 * C + c);
+    q.ax = __ldg(rows + 6 * C + c);
+    q.ay = __ldg(rows + 7 * C + c);
+    q.az = __ldg(rows + 8 * C + c);
+    q.bx = __ldg(rows + 9 * C + c);
+    q.by = __ldg(rows + 10 * C + c);
+    q.bz = __ldg(rows + 11 * C + c);
+    return q;
+  }
+  static __device__ __forceinline__ float sum(const Tri& q) {
+    return q.nx + q.ny + q.nz + q.vx + q.vy + q.vz + q.ax + q.ay + q.az
+           + q.bx + q.by + q.bz;
+  }
+  // n = 0: n . d = 0, parallel
+  static __device__ __forceinline__ bool is_pad(const Tri& q, int32_t id,
+                                                int32_t pad) {
+    return id == pad && q.nx == 0.0f && q.ny == 0.0f && q.nz == 0.0f;
+  }
+  static __device__ __forceinline__ float test(const Tri& q, float ox,
+                                               float oy, float oz, float dx,
+                                               float dy, float dz) {
+    return bwfold::bw_test(q, ox, oy, oz, dx, dy, dz);
+  }
+};
+
+struct MT {                      // rows v0, e1, e2
+  using Tri = bwfold::TriMT;
+  static constexpr int kRows = 9;
+  static __device__ __forceinline__ Tri load(const float* __restrict__ rows,
+                                             int C, int c) {
+    Tri q;
+    q.vx = __ldg(rows + 0 * C + c);
+    q.vy = __ldg(rows + 1 * C + c);
+    q.vz = __ldg(rows + 2 * C + c);
+    q.ax = __ldg(rows + 3 * C + c);
+    q.ay = __ldg(rows + 4 * C + c);
+    q.az = __ldg(rows + 5 * C + c);
+    q.bx = __ldg(rows + 6 * C + c);
+    q.by = __ldg(rows + 7 * C + c);
+    q.bz = __ldg(rows + 8 * C + c);
+    return q;
+  }
+  static __device__ __forceinline__ float sum(const Tri& q) {
+    return q.vx + q.vy + q.vz + q.ax + q.ay + q.az + q.bx + q.by + q.bz;
+  }
+  // e1 = e2 = 0: a = e1 . (d x e2) = 0, parallel
+  static __device__ __forceinline__ bool is_pad(const Tri& q, int32_t id,
+                                                int32_t pad) {
+    return id == pad && q.ax == 0.0f && q.ay == 0.0f && q.az == 0.0f
+           && q.bx == 0.0f && q.by == 0.0f && q.bz == 0.0f;
+  }
+  static __device__ __forceinline__ float test(const Tri& q, float ox,
+                                               float oy, float oz, float dx,
+                                               float dy, float dz) {
+    return bwfold::mt_test(q, ox, oy, oz, dx, dy, dz);
+  }
+};
 
 // The counting instance's wait span ends here: a use of every field of q
 // (and of id) that the compiler cannot drop, so the thread waits until its
 // triangle's loads have landed. The store never happens (ids are >= 0).
-__device__ __forceinline__ void await_tri(const bwfold::Tri& q, int32_t id,
-                                          long long* sink) {
-  const float s = q.nx + q.ny + q.nz + q.vx + q.vy + q.vz + q.ax + q.ay
-                  + q.az + q.bx + q.by + q.bz;
+template <class Test>
+__device__ __forceinline__ void await_tri(const typename Test::Tri& q,
+                                          int32_t id, long long* sink) {
+  const float s = Test::sum(q);
   if (id == INT32_MIN && __float_as_int(s) == 0x7fbfffff) *sink = -1;
 }
 
@@ -192,32 +250,31 @@ inline size_t shared_bytes(int P, int F) {
          + 6 * sizeof(int);
 }
 
-// Fold the n listed rays against a member's C triangles, thread `lane`
-// taking triangles lane, lane + P, ...; (q, id) is its first triangle,
-// already loaded, and `pad` the padding triangles' id. -> the lane tests
-// its warp issued (kCount only).
-template <bool kCount>
+// Fold the n listed rays against a member's C triangles by Test, thread
+// `lane` taking triangles lane, lane + P, ...; (q, id) is its first
+// triangle, already loaded, and `pad` the padding triangles' id. -> the
+// lane tests its warp issued (kCount only).
+template <class Test, bool kCount>
 __device__ __forceinline__ long long fold_listed(
-    bwfold::Tri q, int32_t id, const float* __restrict__ rows,
+    typename Test::Tri q, int32_t id, const float* __restrict__ rows,
     const int32_t* __restrict__ tid, int C, int P, int lane, int n,
     int32_t pad, const float4* ray_a, const float4* ray_b, long long* key) {
   long long issued = 0;
   for (int c = lane; c - lane < C; c += P) {
-    bwfold::Tri qn = q;
+    typename Test::Tri qn = q;
     int32_t idn = 0;
     if (c + P < C) {              // next round's triangle, ahead of the tests
-      qn = load_tri_ldg(rows, C, c + P);
+      qn = Test::load(rows, C, c + P);
       idn = __ldg(tid + c + P);
     }
-    const bool test = c < C && !(id == pad && q.nx == 0.0f && q.ny == 0.0f
-                                 && q.nz == 0.0f);
+    const bool test = c < C && !Test::is_pad(q, id, pad);
     if (kCount && __ballot_sync(0xffffffffu, test)) issued += 32LL * n;
     if (test) {
 #pragma unroll 2
       for (int k = 0; k < n; ++k) {
         const float4 a = ray_a[k];      // o.xyz, d.x
         const float4 b = ray_b[k];      // d.y, d.z, t at start, index
-        const float ts = bwfold::bw_test(q, a.x, a.y, a.z, a.w, b.x, b.y);
+        const float ts = Test::test(q, a.x, a.y, a.z, a.w, b.x, b.y);
         if (ts <= b.z) atomicMin(&key[__float_as_int(b.w)], fold_key(ts, id));
       }
     }
@@ -242,14 +299,14 @@ __device__ __forceinline__ Part block_part(int P) {
           static_cast<int>(blockIdx.x % subs) * static_cast<int>(blockDim.x)};
 }
 
-// One block of B = blockDim.x rays of a tile of P.
-template <bool kCount, bool kVis>
+// One block of B = blockDim.x rays of a tile of P, testing by Test.
+template <class Test, bool kCount, bool kVis>
 __device__ __forceinline__ void gated_tile(
     const int32_t* __restrict__ ids,       // (Tl, M) shortlist slot ids
     const int32_t* __restrict__ counts,    // (Tl,) valid slots per tile
     const float* __restrict__ entries,     // (Tl, M) ascending entry t
     const float* __restrict__ rays,        // (Tl, 8, P) o, d, mask, cap
-    const float* __restrict__ packed,      // (K+1, 12, C) BW rows
+    const float* __restrict__ packed,      // (K+1, Test::kRows, C) rows
     const int32_t* __restrict__ tri,       // (K+1, C) triangle ids
     const float* __restrict__ boxes,       // (K+1, 6) lo.xyz, hi.xyz
     float* __restrict__ t_out,             // (Tl, P)
@@ -331,12 +388,12 @@ __device__ __forceinline__ void gated_tile(
       const int64_t sid = sids[j];
       bool pass = (mine >> j) & 1u;
       if (pass && refold) pass = bwfold::box_gate(bx + j * 6, r, t);
-      const float* rows = packed + sid * kRows * C;
+      const float* rows = packed + sid * Test::kRows * C;
       const int32_t* tid = tri + sid * C;
-      bwfold::Tri q = {};
+      typename Test::Tri q = {};
       int32_t id = 0;
       if (lane < C) {            // the first round's triangle, ahead
-        q = load_tri_ldg(rows, C, lane);
+        q = Test::load(rows, C, lane);
         id = __ldg(tid + lane);
       }
       const unsigned bal = __ballot_sync(0xffffffffu, pass);
@@ -355,11 +412,11 @@ __device__ __forceinline__ void gated_tile(
       sp.mark(kList);
       if (n == 0) continue;
       if (kCount) {
-        await_tri(q, id, row);
+        await_tri<Test>(q, id, row);
         sp.mark(kWait);
       }
-      issued += fold_listed<kCount>(q, id, rows, tid, C, B, lane, n, pad,
-                                    ray_a, ray_b, key);
+      issued += fold_listed<Test, kCount>(q, id, rows, tid, C, B, lane, n,
+                                          pad, ray_a, ray_b, key);
       sp.mark(kTests);
       __syncthreads();           // every key is final for this member
       sp.mark(kMerge);

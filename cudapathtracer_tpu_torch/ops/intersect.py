@@ -5,7 +5,8 @@ and in the same operation order: the slab test (BVH.h:51-83, clipped to
 [0, t_best]), Moller-Trumbore with the reference's epsilons
 (modelLoader.h:49-123: |a| < 1e-5 is parallel, strict ``< 0`` barycentric
 rejects, no ``t > 0`` check, miss = MAX_FLOAT), the Baldwin-Weber
-precomputed form, and ray-sphere.
+precomputed form, the two behind one switch (``triangle_test``,
+``ray_triangle_any``), and ray-sphere.
 
 Rounding: every formula forms the fused multiply-adds that XLA forms for it
 under ``jit`` (ops/vecmath.py), so the port's t equals the JAX package's bit
@@ -88,12 +89,33 @@ def ray_triangle_bw(o: Vec3, d: Vec3, v0: Vec3, n: Vec3, m1: Vec3, m2: Vec3):
     return torch.where(reject, MAX_FLOAT, t)
 
 
+def triangle_test(e1: Vec3, e2: Vec3, intersector: str = "bw"):
+    """The intersector's test and its operands after v0, computed once from
+    the edges: -> (test, rows), ``test(o, d, v0, *rows)`` -> t. 'mt':
+    ``ray_triangle`` on the edges; 'bw': ``ray_triangle_bw`` on
+    ``bw_precompute``'s attributes."""
+    if intersector == "mt":
+        return ray_triangle, (e1, e2)
+    if intersector != "bw":
+        raise ValueError(f"intersector {intersector!r}: 'bw' or 'mt'")
+    return ray_triangle_bw, bw_precompute(e1, e2)
+
+
+def ray_triangle_any(o: Vec3, d: Vec3, v0: Vec3, e1: Vec3, e2: Vec3,
+                     intersector: str = "bw"):
+    """Triangle test by intersector, 'bw' or 'mt' (``triangle_test``)."""
+    test, rows = triangle_test(e1, e2, intersector)
+    return test(o, d, v0, *rows)
+
+
 def ray_sphere(o: Vec3, d: Vec3, center: Vec3, radius):
     """Nearest t > 0 of a ray-sphere hit (sphere.h:7-13), MAX_FLOAT on miss."""
     oc = o - center
     a = dot(d, d)
     b = 2.0 * dot(oc, d)
-    c = dot(oc, oc) - radius * radius
+    # XLA contracts dot(oc, oc) - radius * radius into one fused
+    # multiply-add
+    c = fma(-radius, radius, dot(oc, oc))
     disc = fma(b, b, -(4.0 * a * c))
     miss = disc < 0.0
     sq = sqrt(torch.clamp(disc, min=0.0))

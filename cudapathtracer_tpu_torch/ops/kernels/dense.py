@@ -25,6 +25,7 @@ import os
 from ...utils.build import PACKAGE_DIR
 from .dense_resident import (
     GATED_FOLD_FLAGS,
+    check_inputs,
     is_cpu,
     launch_fold,
     load_fold_kernel,
@@ -48,7 +49,7 @@ dense_intersect_plain.calls = 0
 @functools.cache
 def _load_kernel():
     return load_fold_kernel("libdense_stream.so", SOURCE,
-                            "dense_stream_launch", 5, flags=GATED_FOLD_FLAGS)
+                            "dense_stream_launch", 6, flags=GATED_FOLD_FLAGS)
 
 
 def build():
@@ -58,16 +59,21 @@ def build():
 
 
 def dense_intersect(ids, counts, entries, rays, packed, tri, boxes,
-                    counts_out=None, vis_band: float = 0.0):
+                    counts_out=None, vis_band: float = 0.0,
+                    intersector: str = "bw"):
     """K2 on CUDA tensors (its counting instance given ``counts_out``, its
-    visibility instance given ``vis_band`` > 0); the plain version for
-    tensors on the CPU."""
+    visibility instance given ``vis_band`` > 0, its triangle test the
+    ``intersector``'s, whose pack it needs); the plain version for tensors
+    on the CPU."""
     if is_cpu(rays, counts_out):
+        check_inputs(ids, counts, entries, rays, packed, tri, boxes,
+                     intersector)
         return dense_intersect_plain(ids, counts, entries, rays, packed, tri,
                                      boxes, vis_band)
     out = launch_fold(_load_kernel, "dense", ids, counts, entries, rays,
                       packed, tri, boxes, extra=(packed.shape[0] - 1,),
-                      counts_out=counts_out, vis_band=vis_band)
+                      counts_out=counts_out, vis_band=vis_band,
+                      intersector=intersector)
     dense_intersect.launches += 1
     return out
 

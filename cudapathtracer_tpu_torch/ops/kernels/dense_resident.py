@@ -5,10 +5,15 @@ The CUDA kernel (``csrc/dense_resident.cu``) replaces the Pallas TPU kernel
 the note at the top of the CUDA source says what bounds it on the card and
 what its design does about that. Beside it:
 
-* ``pack_clusters`` lays the scene out for both versions: BW rows
-  (K+1, 12, C) f32 [n.xyz, v0.xyz, m1.xyz, m2.xyz], triangle ids (K+1, C)
-  i32 and cluster boxes (K+1, 6) f32. Row K is the sentinel: all-zero
-  triangles (rejected by the parallel test) and a far-away point box.
+* ``pack_clusters`` lays the scene out for both versions, for the
+  intersector the caller names: Baldwin-Weber rows (K+1, 12, C) f32
+  [n.xyz, v0.xyz, m1.xyz, m2.xyz] ('bw') or Moller-Trumbore rows
+  (K+1, 9, C) f32 [v0.xyz, e1.xyz, e2.xyz] ('mt', the JAX package's
+  ``pack_clusters_resident``), triangle ids (K+1, C) i32 and cluster boxes
+  (K+1, 6) f32. Row K is the sentinel: all-zero triangles (rejected by the
+  parallel test of either intersector) and a far-away point box. Every
+  kernel and plain version tests triangles by the pack's row count, and
+  the wrappers raise where it is not the intersector asked for.
 * ``dense_intersect_resident_plain``, the plain PyTorch version: the
   ungated dense fold of every slot below each tile's count, in the kernel's
   formulas, operation order and fused multiply-adds (ops/vecmath.py). Box
@@ -31,9 +36,9 @@ what its design does about that. Beside it:
   first column.
 * What K2 (``dense.py``) and K3 (``dense_super.py``) share with K1: the
   uncounted plain fold ``plain_fold``, the kernels' gate ``box_gate``, the
-  input checks, the build (``load_fold_kernel``) and the launch
-  (``launch_fold``), and the gated fold's closest-hit key (``fold_key``,
-  ``unpack_key``; for tests).
+  input checks (``check_inputs``), the build (``load_fold_kernel``) and
+  the launch (``launch_fold``), and the gated fold's closest-hit key
+  (``fold_key``, ``unpack_key``; for tests).
 
 Inputs, for Tl tiles of P rays and a shortlist of M slots:
 ids (Tl, M) i32 cluster ids ascending by entry, with K past each count;
@@ -62,7 +67,7 @@ import shutil
 
 import torch
 
-from ...ops.intersect import bw_precompute
+from ...ops.intersect import bw_precompute, ray_triangle
 from ...ops.vecmath import Vec3, dot, fma3
 from ...utils.build import PACKAGE_DIR, build_and_load
 from ...utils.constants import EPS_PARALLEL, MAX_FLOAT
@@ -95,7 +100,15 @@ def k1_group(P: int) -> int:
     return b
 
 
-ROWS = 12
+# the pack's rows per intersector (csrc/gated_fold.cuh: BW, MT)
+ROWS = {"bw": 12, "mt": 9}
+
+
+def intersector_of(packed) -> str:
+    """'bw' or 'mt', by the pack's rows."""
+    return "mt" if packed.shape[1] == ROWS["mt"] else "bw"
+
+
 # A counting instance's columns per tile: clusters (K3: members) folded,
 # lane tests issued, then the clock64() cycles of each phase of the fold,
 # summed over the tile's warps (csrc/gated_fold.cuh).
@@ -115,12 +128,17 @@ def resident_fits(num_clusters: int, cluster_size: int) -> bool:
     return (num_clusters + 1) * 16 * cluster_size * 4 <= RESIDENT_VMEM_BUDGET
 
 
-def pack_clusters(pd):
-    """PacketData -> (packed (K+1, 12, C) f32, tri (K+1, C) i32,
-    boxes (K+1, 6) f32)."""
-    n, m1, m2 = bw_precompute(pd.e1, pd.e2)
-    packed = torch.stack([n.x, n.y, n.z, pd.v0.x, pd.v0.y, pd.v0.z,
-                          m1.x, m1.y, m1.z, m2.x, m2.y, m2.z], dim=1)
+def pack_clusters(pd, intersector: str = "bw"):
+    """PacketData -> (packed (K+1, ROWS[intersector], C) f32, tri (K+1, C)
+    i32, boxes (K+1, 6) f32)."""
+    if intersector == "mt":
+        rows = (*pd.v0, *pd.e1, *pd.e2)
+    elif intersector == "bw":
+        n, m1, m2 = bw_precompute(pd.e1, pd.e2)
+        rows = (*n, *pd.v0, *m1, *m2)
+    else:
+        raise ValueError(f"intersector {intersector!r}: 'bw' or 'mt'")
+    packed = torch.stack(rows, dim=1)
     far = torch.full((1,), _FAR_BOX, dtype=torch.float32,
                      device=pd.tri.device)
     boxes = torch.stack([torch.cat([c, far]) for c in (
@@ -130,15 +148,23 @@ def pack_clusters(pd):
             boxes.contiguous())
 
 
-def _check_inputs(ids, counts, entries, rays, packed, tri, boxes):
+def check_inputs(ids, counts, entries, rays, packed, tri, boxes,
+                 intersector=None):
+    """Shapes, types, device and layout of a fold's inputs; the pack's rows
+    must be one intersector's, and ``intersector``'s where it is named."""
     Tl, M = ids.shape
     K1, rows, C = packed.shape
     P = rays.shape[2]
     dev = rays.device
+    if rows not in ROWS.values() or (intersector is not None
+                                     and rows != ROWS[intersector]):
+        raise ValueError(f"a pack of {rows} rows, not the "
+                         f"{intersector or 'bw or mt'} layout "
+                         f"({ROWS.get(intersector, ROWS)} rows)")
     expect = (
         (ids, (Tl, M), torch.int32), (counts, (Tl,), torch.int32),
         (entries, (Tl, M), torch.float32), (rays, (Tl, 8, P), torch.float32),
-        (packed, (K1, ROWS, C), torch.float32), (tri, (K1, C), torch.int32),
+        (packed, (K1, rows, C), torch.float32), (tri, (K1, C), torch.int32),
         (boxes, (K1, 6), torch.float32),
     )
     for a, shape, dtype in expect:
@@ -176,23 +202,34 @@ def _init(rays):
 
 def _slot_hits(rays, packed, tri, sid):
     """Each ray's closest (t, id) over the C triangles of one cluster per
-    tile: rays (n, 8, P), cluster ids sid (n,) -> (n, P) each, misses at
-    (MAX_FLOAT, lowest id)."""
+    tile, by the pack's intersector: rays (n, 8, P), cluster ids sid (n,)
+    -> (n, P) each, misses at (MAX_FLOAT, lowest id). The tests are the
+    kernels' (``csrc/bw_fold.cuh``: ``bw_test``, ``mt_test``) in their
+    formulas, operation order and fused multiply-adds; MT's is
+    ``intersect.ray_triangle``, whose guard on 1/a changes no unrejected
+    lane."""
     o = [rays[:, i, :, None] for i in range(6)]       # (n, P, 1)
-    cl = packed[sid][:, :, None, :]                   # (n, 12, 1, C)
-    n = Vec3(cl[:, 0], cl[:, 1], cl[:, 2])
-    sx = Vec3(o[0] - cl[:, 3], o[1] - cl[:, 4], o[2] - cl[:, 5])
+    cl = packed[sid][:, :, None, :]                   # (n, rows, 1, C)
     d = Vec3(o[3], o[4], o[5])
-    nd = dot(d, n)
-    parallel = torch.abs(nd) < EPS_PARALLEL
-    inv = 1.0 / nd
-    t = -dot(sx, n) * inv
-    w = fma3(d, t, sx)
-    bu = dot(Vec3(cl[:, 6], cl[:, 7], cl[:, 8]), w)
-    bv = dot(Vec3(cl[:, 9], cl[:, 10], cl[:, 11]), w)
-    bw = 1.0 - bu - bv
-    reject = parallel | (bu < 0.0) | (bv < 0.0) | (bw < 0.0) | (t <= 0.0)
-    ts = torch.where(reject, MAX_FLOAT, t)            # (n, P, C)
+    if intersector_of(packed) == "mt":
+        v0, e1, e2 = (Vec3(cl[:, k], cl[:, k + 1], cl[:, k + 2])
+                      for k in (0, 3, 6))
+        t = ray_triangle(Vec3(o[0], o[1], o[2]), d, v0, e1, e2)
+        ts = torch.where(t <= 0.0, MAX_FLOAT, t)      # (n, P, C)
+    else:
+        n = Vec3(cl[:, 0], cl[:, 1], cl[:, 2])
+        sx = Vec3(o[0] - cl[:, 3], o[1] - cl[:, 4], o[2] - cl[:, 5])
+        nd = dot(d, n)
+        parallel = torch.abs(nd) < EPS_PARALLEL
+        inv = 1.0 / nd
+        t = -dot(sx, n) * inv
+        w = fma3(d, t, sx)
+        bu = dot(Vec3(cl[:, 6], cl[:, 7], cl[:, 8]), w)
+        bv = dot(Vec3(cl[:, 9], cl[:, 10], cl[:, 11]), w)
+        bw = 1.0 - bu - bv
+        reject = (parallel | (bu < 0.0) | (bv < 0.0) | (bw < 0.0)
+                  | (t <= 0.0))
+        ts = torch.where(reject, MAX_FLOAT, t)        # (n, P, C)
     t_new = torch.amin(ts, dim=2)
     id_new = torch.amin(
         torch.where(ts == t_new[..., None], tri[sid][:, None, :], 0x7FFFFFFF),
@@ -236,8 +273,8 @@ def _fold(ids, counts, entries, rays, packed, tri, boxes, chunk_elems,
           group=None, vis_band=0.0):
     """plain_fold, or with ``group`` the gated schedule of ``fold_schedule``
     -> (t, id, folds per tile or None)."""
-    Tl, M, P, C = _check_inputs(ids, counts, entries, rays, packed, tri,
-                                boxes)
+    Tl, M, P, C = check_inputs(ids, counts, entries, rays, packed, tri,
+                               boxes)
     if vis_band < 0.0:
         raise ValueError(f"vis_band {vis_band} must not be negative")
     t_best, tri_best = _init(rays)
@@ -336,7 +373,8 @@ def load_fold_kernel(lib_name: str, source: str, symbol: str, n_ints: int,
                      flags=(), headers=HEADERS):
     """Build ``source`` (which includes ``headers``; NVCC_FLAGS and
     ``flags``) into ``build/lib_name`` and bind ``symbol(10 pointers, n_ints
-    ints, the vis band (float), stream) -> cudaError_t``."""
+    ints (the pack's rows last), the vis band (float), stream) ->
+    cudaError_t``."""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     lib = build_and_load(lib_name, [source], [nvcc] + NVCC_FLAGS + list(flags),
                          headers=headers)
@@ -348,14 +386,16 @@ def load_fold_kernel(lib_name: str, source: str, symbol: str, n_ints: int,
 
 
 def launch_fold(load, name, ids, counts, entries, rays, packed, tri, boxes,
-                extra=(), counts_out=None, vis_band=0.0):
-    """Check the inputs, launch ``load()``'s kernel with (pointers, Tl, M,
-    P, C, *extra, vis_band) on the current stream and return (t, tri);
-    raise if the launch fails. With ``counts_out`` (Tl, COUNT_COLS) int64,
-    zero it and launch the counting instance; with ``vis_band`` > 0 the
-    kernel's visibility instance runs."""
-    Tl, M, P, C = _check_inputs(ids, counts, entries, rays, packed, tri,
-                                boxes)
+                extra=(), counts_out=None, vis_band=0.0, intersector="bw"):
+    """Check the inputs (a pack of ``intersector``'s rows), launch
+    ``load()``'s kernel with (pointers, Tl, M, P, C, *extra, the pack's
+    rows, vis_band) on the current stream and return (t, tri); raise if the
+    launch fails. The rows pick the kernel's triangle test (12: BW, 9: MT).
+    With ``counts_out`` (Tl, COUNT_COLS) int64, zero it and launch the
+    counting instance; with ``vis_band`` > 0 the kernel's visibility
+    instance runs."""
+    Tl, M, P, C = check_inputs(ids, counts, entries, rays, packed, tri,
+                               boxes, intersector)
     if P % 32 != 0 or not 0 < P <= 1024:
         raise ValueError(f"tile size {P} must be a multiple of 32 <= 1024")
     if vis_band < 0.0:
@@ -379,7 +419,8 @@ def launch_fold(load, name, ids, counts, entries, rays, packed, tri, boxes,
                  rays.data_ptr(), packed.data_ptr(), tri.data_ptr(),
                  boxes.data_ptr(), t.data_ptr(), tri_out.data_ptr(),
                  None if counts_out is None else counts_out.data_ptr(),
-                 Tl, M, P, C, *extra, float(vis_band), stream)
+                 Tl, M, P, C, *extra, packed.shape[1], float(vis_band),
+                 stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return t, tri_out
@@ -400,7 +441,7 @@ def is_cpu(rays, counts_out=None):
 @functools.cache
 def _load_kernel():
     return load_fold_kernel("libdense_resident.so", SOURCE,
-                            "dense_resident_launch", 5,
+                            "dense_resident_launch", 6,
                             flags=GATED_FOLD_FLAGS)
 
 
@@ -411,16 +452,21 @@ def build():
 
 
 def dense_intersect_resident(ids, counts, entries, rays, packed, tri, boxes,
-                             counts_out=None, vis_band: float = 0.0):
+                             counts_out=None, vis_band: float = 0.0,
+                             intersector: str = "bw"):
     """K1 on CUDA tensors (its counting instance given ``counts_out``, its
-    visibility instance given ``vis_band`` > 0); the plain version for
-    tensors on the CPU."""
+    visibility instance given ``vis_band`` > 0, its triangle test the
+    ``intersector``'s, whose pack it needs); the plain version for tensors
+    on the CPU."""
     if is_cpu(rays, counts_out):
+        check_inputs(ids, counts, entries, rays, packed, tri, boxes,
+                     intersector)
         return dense_intersect_resident_plain(ids, counts, entries, rays,
                                               packed, tri, boxes, vis_band)
     out = launch_fold(_load_kernel, "dense_resident", ids, counts, entries,
                       rays, packed, tri, boxes, extra=(packed.shape[0] - 1,),
-                      counts_out=counts_out, vis_band=vis_band)
+                      counts_out=counts_out, vis_band=vis_band,
+                      intersector=intersector)
     dense_intersect_resident.launches += 1
     return out
 

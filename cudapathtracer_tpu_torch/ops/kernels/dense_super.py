@@ -34,6 +34,7 @@ import torch
 from ...utils.build import PACKAGE_DIR
 from .dense_resident import (
     GATED_FOLD_FLAGS,
+    check_inputs,
     is_cpu,
     launch_fold,
     load_fold_kernel,
@@ -74,7 +75,7 @@ dense_intersect_super_plain.calls = 0
 @functools.cache
 def _load_kernel():
     return load_fold_kernel("libdense_super.so", SOURCE,
-                            "dense_super_launch", 6, flags=GATED_FOLD_FLAGS)
+                            "dense_super_launch", 7, flags=GATED_FOLD_FLAGS)
 
 
 def build():
@@ -84,13 +85,17 @@ def build():
 
 
 def dense_intersect_super(ids, counts, entries, rays, packed, tri, boxes,
-                          F: int, counts_out=None, vis_band: float = 0.0):
+                          F: int, counts_out=None, vis_band: float = 0.0,
+                          intersector: str = "bw"):
     """K3 on CUDA tensors (its counting instance given ``counts_out``, its
-    visibility instance given ``vis_band`` > 0); the plain version for
-    tensors on the CPU."""
+    visibility instance given ``vis_band`` > 0, its triangle test the
+    ``intersector``'s, whose pack it needs); the plain version for tensors
+    on the CPU."""
     if F < 1:
         raise ValueError(f"super_factor {F} must be at least 1")
     if is_cpu(rays, counts_out):
+        check_inputs(ids, counts, entries, rays, packed, tri, boxes,
+                     intersector)
         return dense_intersect_super_plain(ids, counts, entries, rays,
                                            packed, tri, boxes, F, vis_band)
     if F > 32:
@@ -98,7 +103,8 @@ def dense_intersect_super(ids, counts, entries, rays, packed, tri, boxes,
     out = launch_fold(_load_kernel, "dense_super", ids, counts, entries,
                       rays, packed, tri, boxes,
                       extra=(int(F), packed.shape[0] - 1),
-                      counts_out=counts_out, vis_band=vis_band)
+                      counts_out=counts_out, vis_band=vis_band,
+                      intersector=intersector)
     dense_intersect_super.launches += 1
     return out
 

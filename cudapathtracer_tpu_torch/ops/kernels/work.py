@@ -3,19 +3,28 @@ yardstick for their times (the bound that ``chip_smoke.py`` computes) and for
 their counting instances (lane tests issued against tests needed).
 
 A ray needs a test of every real triangle (an id below the triangle count,
-and a normal that is not zero: a degenerate triangle never hits) of every
+and a normal e1 x e2 that is not zero: a degenerate triangle never hits) of
+every
 listed cluster (or member of a listed super) whose box it enters at or
 before its final t; the box test is the kernels' gate
 (``csrc/bw_fold.cuh:box_gate``). The bytes are
 the rays, counts, listed ids and entries, the rows, ids and box of each
-cluster a needed test touches, and the outputs.
+cluster a needed test touches, and the outputs. A test's float32
+operations, ``OPS_PER_TEST``, are the intersector's.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .dense_resident import box_gate, guarded_inv
+from ..vecmath import Vec3, cross
+from .dense_resident import box_gate, guarded_inv, intersector_of
+
+# float32 operations of one ray-triangle test, counted alike from
+# csrc/bw_fold.cuh (an FMA as 2, the reciprocal as 1): bw_test's arithmetic
+# is 33 and mt_test's 47, and each count adds 2 for the rejection's
+# compares, as the Baldwin-Weber count of 35 always has
+OPS_PER_TEST = {"bw": 35, "mt": 49}
 
 
 def needed_work(sl, t_final, pack, num_tris, F=None):
@@ -23,10 +32,15 @@ def needed_work(sl, t_final, pack, num_tris, F=None):
     (``packets.Shortlists``; in super units with ``F``), the kernel's final
     t (Tl, P) and ``pack_clusters``'s (packed, tri, boxes)."""
     packed, tri, boxes = pack
-    K1, _, C = packed.shape
+    K1, rows, C = packed.shape
     K = K1 - 1
-    real = ((tri < num_tris)
-            & (packed[:, 0:3] != 0).any(dim=1)).sum(dim=1)  # (K+1,)
+    if intersector_of(packed) == "mt":   # rows v0, e1, e2
+        normal = cross(Vec3(*packed[:, 3:6].unbind(1)),
+                       Vec3(*packed[:, 6:9].unbind(1)))
+        normal = torch.stack(normal, dim=1)
+    else:                                # rows n, v0, m1, m2
+        normal = packed[:, 0:3]
+    real = ((tri < num_tris) & (normal != 0).any(dim=1)).sum(dim=1)
     Tl, M = sl.ids.shape
     P = sl.rays.shape[2]
     live = sl.rays[:, 6] > 0.5
@@ -56,5 +70,5 @@ def needed_work(sl, t_final, pack, num_tris, F=None):
         del need
     n_touched = int(touched[:K].sum())
     nbytes = (sl.rays.numel() * 4 + Tl * 4 + int(sl.counts.sum()) * 8
-              + n_touched * ((12 + 1) * C * 4 + 6 * 4) + Tl * P * 8)
+              + n_touched * ((rows + 1) * C * 4 + 6 * 4) + Tl * P * 8)
     return tests, n_touched, nbytes

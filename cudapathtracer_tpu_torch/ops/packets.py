@@ -22,7 +22,9 @@ The hit equals the brute-force oracle's for any grouping of rays into tiles,
 so sort order among equal keys changes nothing. A caller's per-ray cap
 (``t_cap``) reports hits at or beyond it as misses, and ``vis_band`` turns
 on the kernels' visibility instance (BDPT's connection rays): the JAX
-package's capped and visibility-only queries (packets.py:278-298).
+package's capped and visibility-only queries (packets.py:278-298). The
+triangle test is the caller's intersector, Baldwin-Weber or
+Moller-Trumbore, in the kernels and in the fallback.
 """
 
 from __future__ import annotations
@@ -324,15 +326,18 @@ def trace_packets(o: Vec3, d: Vec3, pd: PacketData,
                   sort: bool = False, two_level: bool | str | None = None,
                   super_factor: int = 8, super_list: int = 255,
                   resident_pack=None, t_cap=None,
-                  vis_band: float = 0.0) -> Hit:
+                  vis_band: float = 0.0, intersector: str = "bw") -> Hit:
     """Closest hit for R rays through tile packets; the semantics of
     ``traversal.trace``: closest triangle with 0 < t, MAX_FLOAT/-1 on miss,
     exact-t ties to the lower id. ``fine_td`` enables the overflow
     fallback; without it, hits are exact only when no tile drops a
     candidate. ``two_level``, ``super_factor`` and ``super_list`` choose
     the cull and kernel as in the JAX package (``route``).
-    ``resident_pack``: ``pack_clusters(pd)``, precomputed once per scene by
-    the renderer; all three kernels read it.
+    ``resident_pack``: ``pack_clusters(pd, intersector)``, precomputed once
+    per scene by the renderer; all three kernels read it, and raise if it is
+    not ``intersector``'s layout. ``intersector``: the triangle test of the
+    kernels and of the fallback walk, 'bw' (Baldwin-Weber) or 'mt'
+    (Moller-Trumbore).
 
     ``t_cap``: an optional (R,) float32 per-ray cap; hits at or beyond it
     report as the miss (MAX_FLOAT, -1), hits below it are exact.
@@ -364,7 +369,8 @@ def trace_packets(o: Vec3, d: Vec3, pd: PacketData,
             mask=mask[perm], tile_size=tile_size, max_clusters=max_clusters,
             sort=False, two_level=two_level, super_factor=F,
             super_list=super_list, resident_pack=resident_pack,
-            t_cap=None if t_cap is None else t_cap[perm], vis_band=vis_band)
+            t_cap=None if t_cap is None else t_cap[perm], vis_band=vis_band,
+            intersector=intersector)
         t = torch.empty_like(h.t)
         tri = torch.empty_like(h.tri)
         t[perm] = h.t
@@ -374,22 +380,25 @@ def trace_packets(o: Vec3, d: Vec3, pd: PacketData,
     sl = build_shortlists(o, d, mask, pd, tile_size, max_clusters,
                           super_factor=F if kernel == "super" else None,
                           super_list=super_list, t_cap=t_cap)
-    pack = resident_pack if resident_pack is not None else pack_clusters(pd)
+    pack = (resident_pack if resident_pack is not None
+            else pack_clusters(pd, intersector))
     args = (sl.ids, sl.counts, sl.entries, sl.rays, *pack)
+    kw = dict(vis_band=vis_band, intersector=intersector)
     if kernel == "super":
-        t_best, tri_best = dense_intersect_super(*args, F, vis_band=vis_band)
+        t_best, tri_best = dense_intersect_super(*args, F, **kw)
     elif kernel == "stream":
-        t_best, tri_best = dense_intersect(*args, vis_band=vis_band)
+        t_best, tri_best = dense_intersect(*args, **kw)
     else:
-        t_best, tri_best = dense_intersect_resident(*args, vis_band=vis_band)
+        t_best, tri_best = dense_intersect_resident(*args, **kw)
     return _finish(o, d, t_best, tri_best, mask, sl.U, fine_td, R, t_cap,
-                   vis_band > 0.0)
+                   vis_band > 0.0, intersector)
 
 
 def _finish(o, d, t_best, tri_best, mask, U, fine_td, R, t_cap=None,
-            vis=False):
-    """Trim padding, apply the lane mask, the fallback and the caller's cap,
-    in the JAX package's order (packets.py:839-885)."""
+            vis=False, intersector="bw"):
+    """Trim padding, apply the lane mask, the fallback (a walk of the fine
+    BVH with the caller's intersector) and the caller's cap, in the JAX
+    package's order (packets.py:839-885)."""
     Tl, P = t_best.shape
     t_flat = t_best.reshape(-1)[:R]
     tri_flat = tri_best.reshape(-1)[:R]
@@ -410,7 +419,7 @@ def _finish(o, d, t_best, tri_best, mask, U, fine_td, R, t_cap=None,
     t_eff = t_flat if t_cap is None else torch.minimum(t_flat, t_cap)
     need_fb = mask & (t_eff >= u_ray)
     if fine_td is not None and bool(need_fb.any()):
-        fb = trace(o, d, fine_td, mask=need_fb)
+        fb = trace(o, d, fine_td, mask=need_fb, intersector=intersector)
         t_flat = torch.where(need_fb, fb.t, t_flat)
         tri_flat = torch.where(need_fb, fb.tri, tri_flat)
     if t_cap is not None:

@@ -9,8 +9,11 @@ that ends when no lane's cursor is live. Results are per ray, so running the
 selected lanes alone changes nothing.
 
 Hits keep the closest triangle with ``0 < t`` (kernel.cu:127); exact-t ties
-go to the lower triangle id, so every engine gives the same hit. Hits are
-plain tensors and carry no autograd history (ops/packets.py:321-323).
+go to the lower triangle id, so every engine gives the same hit. Every
+engine tests triangles with the caller's intersector, Baldwin-Weber ('bw')
+or Moller-Trumbore ('mt'); ``trace`` also counts its walk (``TraceStats``).
+Hits are plain tensors and carry no autograd history
+(ops/packets.py:321-323).
 """
 
 from __future__ import annotations
@@ -20,12 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.constants import MAX_FLOAT
-from .intersect import (
-    bw_precompute,
-    ray_aabb,
-    ray_sphere,
-    ray_triangle_bw,
-)
+from .intersect import ray_aabb, ray_sphere, triangle_test
 from .vecmath import Vec3, gather, take_clip
 
 _TRI_SENTINEL = 0x7FFFFFFF
@@ -111,63 +109,100 @@ def _col(v: Vec3) -> Vec3:
     return Vec3(v.x[:, None], v.y[:, None], v.z[:, None])
 
 
-def trace(o: Vec3, d: Vec3, td: TraceData, mask=None) -> Hit:
-    """Closest hit of R rays by the skip-link walk (Baldwin-Weber test);
-    lanes with mask False report a miss and cost nothing."""
+class TraceStats(NamedTuple):
+    """The walk's counters (JAX ``traversal.TraceStats``): the reference's
+    per-triangle visit counter (kernel.cu:133), the loop's steps and the
+    nodes each ray visited (the BVH falsecolor)."""
+
+    tri_visits: torch.Tensor  # (T+1,) i32, slot T collects the pad visits
+    steps: torch.Tensor       # () i32, loop iterations of the batch
+    ray_visits: torch.Tensor  # (R,) i32, nodes visited per ray
+
+
+def trace(o: Vec3, d: Vec3, td: TraceData, mask=None,
+          with_stats: bool = False, intersector: str = "bw"):
+    """Closest hit of R rays by the skip-link walk, testing triangles by
+    ``intersector`` ('bw' or 'mt', ``intersect.triangle_test``); lanes
+    with mask False report a miss and cost nothing. -> Hit, and with
+    ``with_stats`` (Hit, TraceStats) equal to the JAX walk's: its loop
+    steps over all R lanes, each adding L visits per lane to a triangle's
+    slot (a leaf's triangles for a lane that tests one, slot T otherwise),
+    so the lanes this loop leaves out add theirs to slot T."""
     R = o.x.shape[0]
     dev = o.x.device
     t_out = torch.full((R,), MAX_FLOAT, dtype=torch.float32, device=dev)
     tri_out = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    L = td.leaf_tri.shape[1]
+    nvis = td.num_tris + 1
+    tri_visits = torch.zeros(nvis, dtype=torch.int64, device=dev)
+    ray_visits = torch.zeros(R, dtype=torch.int32, device=dev)
+    steps = 0
     sel = (torch.arange(R, device=dev) if mask is None
            else torch.nonzero(mask).flatten())
-    if sel.numel() == 0:
-        return Hit(tri=tri_out, t=t_out)
-    o = _rows(o, sel)
-    d = _rows(d, sel)
-    N = td.num_nodes
-    inv_d = Vec3(1.0 / d.x, 1.0 / d.y, 1.0 / d.z)
-    o_b, d_b = _col(o), _col(d)
-    attrs = bw_precompute(td.leaf_e1, td.leaf_e2)
-
     n = sel.numel()
-    cursor = torch.zeros(n, dtype=torch.int64, device=dev)
-    t_best = torch.full((n,), MAX_FLOAT, dtype=torch.float32, device=dev)
-    tri_best = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    while bool((cursor < N).any()):
-        active = cursor < N
-        curc = torch.clamp(cursor, max=N - 1)
-        box_hit = ray_aabb(o, inv_d, gather(td.node_lo, curc),
-                           gather(td.node_hi, curc), t_best=t_best) & active
-        leaf = td.node_leaf[curc]
-        is_leaf = leaf >= 0
-        do_leaf = is_leaf & box_hit
-        lid = torch.clamp(leaf, min=0).long()
-        tri_ids = td.leaf_tri[lid]
-        ts = ray_triangle_bw(o_b, d_b, _rows(td.leaf_v0, lid),
-                             *(_rows(a, lid) for a in attrs))
-        valid = (do_leaf[:, None] & (tri_ids < td.num_tris) & (ts > 0.0)
-                 & (ts <= t_best[:, None]))
-        ts = torch.where(valid, ts, MAX_FLOAT)
-        t_best, tri_best = _closest_update(ts, tri_ids, t_best, tri_best)
-        skip = td.node_skip[curc].long()
-        nxt = torch.where(is_leaf | ~box_hit, skip, curc + 1)
-        cursor = torch.where(active, nxt, cursor)
-    t_out[sel] = t_best
-    tri_out[sel] = tri_best
-    return Hit(tri=tri_out, t=t_out)
+    if n:
+        o = _rows(o, sel)
+        d = _rows(d, sel)
+        N = td.num_nodes
+        inv_d = Vec3(1.0 / d.x, 1.0 / d.y, 1.0 / d.z)
+        o_b, d_b = _col(o), _col(d)
+        test, attrs = triangle_test(td.leaf_e1, td.leaf_e2, intersector)
+        cursor = torch.zeros(n, dtype=torch.int64, device=dev)
+        t_best = torch.full((n,), MAX_FLOAT, dtype=torch.float32, device=dev)
+        tri_best = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        visits = torch.zeros(n, dtype=torch.int32, device=dev)
+        while bool((cursor < N).any()):
+            active = cursor < N
+            curc = torch.clamp(cursor, max=N - 1)
+            box_hit = ray_aabb(o, inv_d, gather(td.node_lo, curc),
+                               gather(td.node_hi, curc),
+                               t_best=t_best) & active
+            leaf = td.node_leaf[curc]
+            is_leaf = leaf >= 0
+            do_leaf = is_leaf & box_hit
+            lid = torch.clamp(leaf, min=0).long()
+            tri_ids = td.leaf_tri[lid]
+            ts = test(o_b, d_b, _rows(td.leaf_v0, lid),
+                      *(_rows(a, lid) for a in attrs))
+            valid = (do_leaf[:, None] & (tri_ids < td.num_tris)
+                     & (ts > 0.0) & (ts <= t_best[:, None]))
+            ts = torch.where(valid, ts, MAX_FLOAT)
+            t_best, tri_best = _closest_update(ts, tri_ids, t_best, tri_best)
+            skip = td.node_skip[curc].long()
+            nxt = torch.where(is_leaf | ~box_hit, skip, curc + 1)
+            cursor = torch.where(active, nxt, cursor)
+            if with_stats:
+                slot = torch.where(do_leaf[:, None], tri_ids.long(),
+                                   nvis - 1)
+                tri_visits += torch.bincount(slot.flatten(), minlength=nvis)
+                visits += active.to(torch.int32)
+            steps += 1
+        t_out[sel] = t_best
+        tri_out[sel] = tri_best
+        ray_visits[sel] = visits
+    hit = Hit(tri=tri_out, t=t_out)
+    if not with_stats:
+        return hit
+    # the JAX loop runs all R lanes: each lane left out adds L pad visits a
+    # step
+    tri_visits[nvis - 1] += (R - n) * L * steps
+    return hit, TraceStats(tri_visits=tri_visits.to(torch.int32),
+                           steps=torch.tensor(steps, dtype=torch.int32,
+                                              device=dev),
+                           ray_visits=ray_visits)
 
 
 def trace_bruteforce(o: Vec3, d: Vec3, scene, mask=None,
-                     chunk: int = 512) -> Hit:
-    """All-pairs closest hit (Baldwin-Weber test), every ray against every
-    triangle in chunks of ``chunk`` triangles: the oracle the other engines
-    are held to."""
+                     chunk: int = 512, intersector: str = "bw") -> Hit:
+    """All-pairs closest hit, every ray against every triangle in chunks of
+    ``chunk`` triangles, testing by ``intersector`` ('bw' or 'mt'): the
+    oracle the other engines are held to."""
     T = scene.num_tris
     dev = o.x.device
     v0 = gather(scene.verts, scene.tri_v0)
     v1 = gather(scene.verts, scene.tri_v1)
     v2 = gather(scene.verts, scene.tri_v2)
-    attrs = bw_precompute(v1 - v0, v2 - v0)
+    test, attrs = triangle_test(v1 - v0, v2 - v0, intersector)
     o_b, d_b = _col(o), _col(d)
     R = o.x.shape[0]
     t_best = torch.full((R,), MAX_FLOAT, dtype=torch.float32, device=dev)
@@ -178,7 +213,7 @@ def trace_bruteforce(o: Vec3, d: Vec3, scene, mask=None,
         def b(v):
             return Vec3(v.x[None, sl], v.y[None, sl], v.z[None, sl])
 
-        ts = ray_triangle_bw(o_b, d_b, b(v0), *(b(a) for a in attrs))
+        ts = test(o_b, d_b, b(v0), *(b(a) for a in attrs))
         ids = torch.arange(sl.start, sl.stop, dtype=torch.int32,
                            device=dev)[None, :].expand(R, -1)
         valid = (ts > 0.0) & (ts <= t_best[:, None])

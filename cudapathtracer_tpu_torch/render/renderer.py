@@ -11,7 +11,10 @@ color.h:6).
 Everything lives on one device, named explicitly: ``to_scene``,
 ``make_camera``, ``init_accum`` and ``render`` each take ``device``. The
 packet engine follows the tensors: it runs the CUDA kernel on CUDA tensors
-and the kernel's plain PyTorch version on CPU tensors.
+and the kernel's plain PyTorch version on CPU tensors. ``cfg.traversal``
+picks the engine, as in the JAX package: the packet engine ('packets'),
+the fine-BVH walk ('bvh') or brute force ('brute'); each tests triangles
+with ``cfg.intersector``.
 """
 
 from __future__ import annotations
@@ -78,7 +81,8 @@ def _accum_update(state: AccumState, sample: Vec3,
 
 class PacketPrep(NamedTuple):
     """Scene-constant packet precompute, built once per render: the cluster
-    blocks and the kernels' scene layout (ops/kernels/dense_resident.py)."""
+    blocks and the kernels' scene layout for one intersector
+    (ops/kernels/dense_resident.py)."""
 
     pdata: packets.PacketData
     resident_pack: tuple
@@ -94,41 +98,67 @@ def resolve_tile_size(cfg: RenderConfig, num_tris: int) -> int:
     return 256 if c <= 512 else 128
 
 
-def make_packet_prep(scene, bvh: Accel) -> PacketPrep:
+def make_packet_prep(scene, bvh: Accel,
+                     intersector: str = "bw") -> PacketPrep:
     pdata = packets.make_packet_data(
         scene, Vec3(bvh.cl_lo_x, bvh.cl_lo_y, bvh.cl_lo_z),
         Vec3(bvh.cl_hi_x, bvh.cl_hi_y, bvh.cl_hi_z), bvh.cl_tri)
-    return PacketPrep(pdata=pdata, resident_pack=pack_clusters(pdata))
+    return PacketPrep(pdata=pdata,
+                      resident_pack=pack_clusters(pdata, intersector))
 
 
-def make_trace_fn(scene, cfg: RenderConfig, bvh: Accel,
+def make_trace_fn(scene, cfg: RenderConfig, bvh: Accel | None,
                   prep: PacketPrep | None = None):
     """The trace closure the integrators consume: (o, d, mask, t_cap=None,
-    vis_band=0.0) -> Hit, through the packet engine with the fine BVH as
-    its fallback, and the scene's analytic spheres folded over the triangle
-    hit. A visibility trace (``vis_band`` > 0, BDPT's connection rays) is
-    tiled by ``cfg.tile_size_vis`` where given, and keeps its band only
-    with ``cfg.vis_dropout`` (renderer.py:194-227)."""
-    td = traversal.make_trace_data(scene, bvh.fine)
-    if prep is None:
-        prep = make_packet_prep(scene, bvh)
-    ts_base = resolve_tile_size(cfg, scene.num_tris)
+    vis_band=0.0) -> Hit by ``cfg.traversal`` with ``cfg.intersector``,
+    and the scene's analytic spheres folded over the triangle hit
+    (renderer.py:141-236).
+
+    'packets': the packet engine with the fine BVH as its fallback; a
+    visibility trace (``vis_band`` > 0, BDPT's connection rays) is tiled by
+    ``cfg.tile_size_vis`` where given, and keeps its band only with
+    ``cfg.vis_dropout``. 'bvh' (the fine-BVH walk) and 'brute' (which
+    needs no ``bvh``) answer the closest hit, capped by ``t_cap``, and
+    ignore ``vis_band``: the closest hit decides a visibility query
+    alike."""
+    if cfg.traversal == "brute":
+        def base(o, d, mask, t_cap=None, vis_band=0.0):
+            h = traversal.trace_bruteforce(o, d, scene, mask=mask,
+                                           intersector=cfg.intersector)
+            return h if t_cap is None else traversal.apply_t_cap(h, t_cap)
+    elif cfg.traversal == "bvh":
+        td = traversal.make_trace_data(scene, bvh.fine)
+
+        def base(o, d, mask, t_cap=None, vis_band=0.0):
+            h = traversal.trace(o, d, td, mask=mask,
+                                intersector=cfg.intersector)
+            return h if t_cap is None else traversal.apply_t_cap(h, t_cap)
+    else:
+        td = traversal.make_trace_data(scene, bvh.fine)
+        if prep is None:
+            prep = make_packet_prep(scene, bvh, cfg.intersector)
+        ts_base = resolve_tile_size(cfg, scene.num_tris)
+
+        def base(o, d, mask, t_cap=None, vis_band=0.0):
+            # the tile size keys on the call site, with or without the
+            # dropout
+            ts = (cfg.tile_size_vis
+                  if vis_band > 0.0 and cfg.tile_size_vis is not None
+                  else ts_base)
+            if not cfg.vis_dropout:
+                vis_band = 0.0
+            return packets.trace_packets(
+                o, d, prep.pdata, fine_td=td, mask=mask, tile_size=ts,
+                max_clusters=cfg.max_clusters, sort=cfg.packet_sort,
+                two_level=cfg.two_level_cull, super_factor=cfg.super_factor,
+                super_list=cfg.super_list, resident_pack=prep.resident_pack,
+                t_cap=t_cap, vis_band=vis_band, intersector=cfg.intersector)
+
+    if scene.num_spheres == 0:
+        return base
 
     def trace_fn(o, d, mask, t_cap=None, vis_band=0.0):
-        # the tile size keys on the call site, with or without the dropout
-        ts = (cfg.tile_size_vis
-              if vis_band > 0.0 and cfg.tile_size_vis is not None
-              else ts_base)
-        if not cfg.vis_dropout:
-            vis_band = 0.0
-        h = packets.trace_packets(
-            o, d, prep.pdata, fine_td=td, mask=mask, tile_size=ts,
-            max_clusters=cfg.max_clusters, sort=cfg.packet_sort,
-            two_level=cfg.two_level_cull, super_factor=cfg.super_factor,
-            super_list=cfg.super_list, resident_pack=prep.resident_pack,
-            t_cap=t_cap, vis_band=vis_band)
-        if scene.num_spheres == 0:
-            return h
+        h = base(o, d, mask, t_cap=t_cap, vis_band=vis_band)
         h = traversal.trace_spheres(o, d, scene, h.t, h.tri, mask=mask)
         # sphere hits beyond the cap are misses too
         return h if t_cap is None else traversal.apply_t_cap(h, t_cap)
@@ -151,7 +181,7 @@ def _radiance(o, d, scene, trace_fn, keys, cfg: RenderConfig,
                          primary_hit=primary_hit)
 
 
-def render_batch(scene, bvh: Accel, cam: Camera, cfg: RenderConfig,
+def render_batch(scene, bvh: Accel | None, cam: Camera, cfg: RenderConfig,
                  base_key, state: AccumState, num_samples: int,
                  prep: PacketPrep | None = None) -> AccumState:
     """Render ``num_samples`` progressive samples of every pixel into
@@ -189,16 +219,18 @@ def render(scene, cam: Camera, cfg: RenderConfig, seed: int = 1234,
     """Full progressive render on ``device``: build the accel structure if
     needed (host, like the reference's buildBVH, kernel.cu:601), then render
     ``cfg.spp`` samples in ``cfg.samples_per_call`` chunks. A pinhole camera
-    without jitter turns on ``reuse_primary_hit``."""
+    without jitter turns on ``reuse_primary_hit``. Brute force
+    (``cfg.traversal == 'brute'``) builds no accel structure."""
     check_supported(cfg)
     device = torch.device(device)
     for name, t in (("scene", scene.tri_v0), ("camera", cam.radius)):
         if t.device.type != device.type:
             raise ValueError(f"{name} lives on {t.device}, not {device}")
-    if bvh is None:
+    if bvh is None and cfg.traversal != "brute":
         bvh = build_bvh_for_scene(scene, cfg.leaf_size,
                                   cluster_size=cfg.cluster_size)
-    prep = make_packet_prep(scene, bvh)
+    prep = (make_packet_prep(scene, bvh, cfg.intersector)
+            if cfg.traversal == "packets" else None)
     if state is None:
         state = init_accum(cfg, device=device)
     if (not cfg.reuse_primary_hit and not cfg.jitter

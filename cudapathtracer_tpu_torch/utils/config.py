@@ -12,7 +12,9 @@ the honest count of samples actually accumulated.
 The PyTorch port keeps the JAX package's fields, defaults and accepted
 values unchanged, so a config means the same thing in both packages. Both
 integrators are ported, BDPT (the default) with its visibility knobs
-``tile_size_vis`` and ``vis_dropout``. ``check_supported`` rejects every
+``tile_size_vis`` and ``vis_dropout``, and so are the three traversal
+engines (packets, the fine-BVH walk and brute force) and both triangle
+intersectors, each engine with each. ``check_supported`` rejects every
 value the port does not implement yet, among them any ``packet_engine`` but
 'auto' (the engine follows the tensors: the CUDA kernel on CUDA tensors,
 its plain version on CPU tensors) and any non-default value of the knobs
@@ -68,10 +70,10 @@ class RenderConfig:
     #                                 windows are not ported)
     warm_start: int | None = None   # TPU kernel schedule (not ported)
     ray_groups: int | None = None   # TPU kernel schedule (not ported)
-    intersector: str = "bw"         # triangle test: 'bw' (Baldwin-Weber
+    intersector: str = "bw"         # triangle test of every engine and
+    #                                 kernel: 'bw' (Baldwin-Weber
     #                                 precomputed form) | 'mt' (the reference's
-    #                                 Moller-Trumbore, modelLoader.h:49-123);
-    #                                 the packet engine runs 'bw' only
+    #                                 Moller-Trumbore, modelLoader.h:49-123)
     # quirk flags (defaults = reference behavior; SURVEY.md §7 ledger)
     orthonormal_frame: bool = False
     light_normal_mode: str = "fixed"
@@ -116,15 +118,12 @@ SCHEDULE_KNOBS = ("packet_first_round", "super_slots", "warm_start",
 
 def check_supported(cfg: RenderConfig) -> None:
     """Raise NotImplementedError, naming the knob, for a value the port
-    does not implement: everything outside the PT+NEE and BDPT packet paths
-    with the flat or super cull and one round. The scene-dependent limit
+    does not implement: the packet engine's capped two-level cull, straggler
+    rounds, sample batches, sort windows, the JAX package's engine choices
+    and the TPU schedule knobs. The scene-dependent limit
     (the auto cull's capped two-level choice past K = 2048 clusters when
     the scene does not allow super shortlists) is checked where K and C are
     known (ops/packets.route)."""
-    if cfg.traversal != "packets":
-        raise NotImplementedError(
-            f"traversal={cfg.traversal!r}: the port renders through the "
-            "packet engine only")
     if cfg.packet_rounds > 1:
         raise NotImplementedError(
             f"packet_rounds={cfg.packet_rounds}: one round only")
@@ -143,10 +142,6 @@ def check_supported(cfg: RenderConfig) -> None:
             "cull is not ported (flat, 'super' or auto only)")
     if cfg.super_factor < 1:
         raise ValueError(f"super_factor={cfg.super_factor}: must be >= 1")
-    if cfg.intersector != "bw":
-        raise NotImplementedError(
-            f"intersector={cfg.intersector!r}: the packet engine runs the "
-            "Baldwin-Weber test only")
     if cfg.packet_engine != "auto":
         raise NotImplementedError(
             f"packet_engine={cfg.packet_engine!r}: the port's engine is "

@@ -12,7 +12,12 @@ of the port's pt_nee render (tests/test_torch_render.py). Hits are
 identical; the shading arithmetic around them differs in the last bits
 where XLA's CPU code is not correctly rounded: its rsqrt is the hardware
 estimate refined by one Newton step, and its cos and sin differ from the
-correctly rounded value on about 1% of inputs."""
+correctly rounded value on about 1% of inputs. The rsqrt estimate differs
+between processors, so the per-pixel rule admits the one residue it leaves
+on some hosts (``torch_fold_cases.assert_pixels_close``: pixel 22 of the
+sphere_mesh render, 1.35e-5 relative, on an AVX-512 Xeon). Both
+intersectors render alike against the JAX package, and the fine-BVH walk
+and brute force render the packet engine's image."""
 
 import os
 import subprocess
@@ -23,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_fold_cases import MT_SEAM_FLIP_SHARE, assert_pixels_close
 
 import cudapathtracer_tpu as J
 from cudapathtracer_tpu.models import procedural as jproc
@@ -68,28 +74,49 @@ def _port_render(scene, w, spp, seed, **kw):
                     _cfg(T, w, spp, **kw), seed=seed, device="cpu")
 
 
+# (scene, spp, intersector); the Baldwin-Weber cases keep their ids
+PER_PIXEL = (("cornell", 4, "bw"), ("sphere_mesh", 2, "bw"),
+             ("sphere_mesh", 2, "mt"))
+
+
 @pytest.fixture(scope="module")
 def jax_ref():
     """The JAX package's BDPT renders, built once (XLA:CPU compiles pile
     up; pytest.ini)."""
     out = {}
-    for scene, spp in (("cornell", 4), ("sphere_mesh", 2)):
+    for scene, spp, isect in PER_PIXEL:
         name, kw = SCENES[scene]
-        out[scene] = J.render(jproc.to_scene(getattr(jproc, name)(**kw)),
-                              J.make_camera(width=16, height=16),
-                              _cfg(J, 16, spp), seed=9)
+        out[scene, isect] = J.render(
+            jproc.to_scene(getattr(jproc, name)(**kw)),
+            J.make_camera(width=16, height=16),
+            _cfg(J, 16, spp, intersector=isect), seed=9)
     return out
 
 
-@pytest.mark.parametrize("scene,spp", [("cornell", 4), ("sphere_mesh", 2)])
-def test_bdpt_matches_jax_per_pixel(jax_ref, scene, spp):
-    want = jax_ref[scene]
-    got = _port_render(scene, 16, spp, seed=9)
+@pytest.mark.parametrize("scene,spp,intersector", [
+    pytest.param(*c, id=f"{c[0]}-{c[1]}" + ("-mt" if c[2] == "mt" else ""))
+    for c in PER_PIXEL])
+def test_bdpt_matches_jax_per_pixel(jax_ref, scene, spp, intersector):
+    want = jax_ref[scene, intersector]
+    got = _port_render(scene, 16, spp, seed=9, intersector=intersector)
     assert got.n == int(want.n) == spp
-    for a, b in zip(got.img, want.img):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=3e-6,
-                                   atol=1e-7)
+    assert_pixels_close(got.img, want.img,
+                        MT_SEAM_FLIP_SHARE if intersector == "mt" else 0.0)
     assert float(got.img.x.max()) > 0
+
+
+@pytest.mark.parametrize("intersector", ["bw", "mt"])
+def test_bdpt_engines_render_alike(intersector):
+    """BDPT through the fine-BVH walk and brute force: the same image bit
+    for bit, and the packet engine's under the per-pixel rule (the capped
+    visibility traces give the same decisions in every engine)."""
+    imgs = {tr: _port_render("cornell", 16, 2, seed=9, traversal=tr,
+                             intersector=intersector)
+            for tr in ("bvh", "brute", "packets")}
+    for a, b in zip(imgs["bvh"].img, imgs["brute"].img):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert_pixels_close(imgs["bvh"].img, imgs["packets"].img)
+    assert float(imgs["bvh"].img.x.max()) > 0
 
 
 def test_golden_cornell_bdpt():

@@ -2,12 +2,14 @@
 and the packet engine's stream route.
 
 Its plain version is held against the JAX package's Pallas kernel
-dense_intersect(..., bw=True, interpret=True) on identical shortlists, at
-C = 128 as in tests/test_packets.py:206-248: triangle ids exactly, t to
-rtol 1e-6 / atol 1e-6 (tests/test_packets.py:247). trace_packets, forced
-onto the stream route by shrinking the port's copy of the resident budget
-(as tests/test_packets.py:240 shrinks the JAX package's), equals brute force
-and the JAX package's trace_packets(engine="pallas_interpret") exactly.
+dense_intersect(..., interpret=True) on identical shortlists, at C = 128 as
+in tests/test_packets.py:206-248: triangle ids exactly, t to rtol 1e-6 /
+atol 1e-6 (tests/test_packets.py:247) with Baldwin-Weber (bw=True) and bit
+for bit with Moller-Trumbore (bw=False). trace_packets, forced onto the
+stream route by shrinking the port's copy of the resident budget (as
+tests/test_packets.py:240 shrinks the JAX package's), equals brute force
+and the JAX package's trace_packets(engine="pallas_interpret") exactly,
+with either intersector.
 
 The CUDA kernel runs only on a card: its cases are marked ``cuda`` and skip
 elsewhere. The JAX package is imported only by the cases that compare
@@ -20,7 +22,7 @@ import pytest
 import torch
 from torch_fold_cases import (SYNTHETIC_CASES, VIS_BAND, check_vis,
                               colonnade_case, jax_scene, rays, shortlists,
-                              tv, vis_case)
+                              tv, vis_case, with_mt)
 
 from cudapathtracer_tpu_torch.ops import packets as tpk
 from cudapathtracer_tpu_torch.ops import traversal as ttrav
@@ -45,22 +47,27 @@ def scene():
     return jax_scene(subdiv=2)
 
 
-@pytest.mark.parametrize("kind,sort", [("camera", False), ("camera", True),
-                                       ("random", True)])
-def test_plain_matches_pallas_interpret(scene, kind, sort):
+@pytest.mark.parametrize("kind,sort,intersector", with_mt(
+    [("camera", False), ("camera", True), ("random", True)]))
+def test_plain_matches_pallas_interpret(scene, kind, sort, intersector):
+    mt = intersector == "mt"
     sl = shortlists(scene["tpd"], kind, sort)
     assert int(sl.counts.max()) >= 2
     t, tri = tk2.dense_intersect_plain(sl.ids, sl.counts, sl.entries,
-                                       sl.rays, *scene["pack"])
+                                       sl.rays,
+                                       *scene["pack_mt" if mt else "pack"])
     jnp = scene["jnp"]
     jt, jtri = scene["jd"].dense_intersect(
         jnp.asarray(sl.ids.numpy()), jnp.asarray(sl.counts.numpy()),
         jnp.asarray(sl.entries.numpy()), jnp.asarray(sl.rays.numpy()),
-        scene["jpack"], scene["jboxes"], scene["js"].num_tris,
-        interpret=True, bw=True)
+        scene["jpack_mt" if mt else "jpack"], scene["jboxes"],
+        scene["js"].num_tris, interpret=True, bw=not mt)
     np.testing.assert_array_equal(tri.numpy(), np.asarray(jtri))
-    np.testing.assert_allclose(t.numpy(), np.asarray(jt), rtol=1e-6,
-                               atol=1e-6)
+    if mt:
+        np.testing.assert_array_equal(t.numpy(), np.asarray(jt))
+    else:
+        np.testing.assert_allclose(t.numpy(), np.asarray(jt), rtol=1e-6,
+                                   atol=1e-6)
     assert (tri.numpy() >= 0).sum() > 100
 
 
@@ -85,15 +92,19 @@ def test_wrapper_takes_plain_version_on_cpu(scene):
             (sl.ids.shape[0], 2), dtype=torch.int64))
 
 
-@pytest.mark.parametrize("masked", [False, True])
-def test_trace_packets_stream_route(scene, monkeypatch, masked):
+@pytest.mark.parametrize("masked,intersector", with_mt([False, True]))
+def test_trace_packets_stream_route(scene, monkeypatch, masked,
+                                    intersector):
     """The stream route, forced on a resident-eligible scene, equals brute
-    force and the JAX package's DMA-kernel route exactly."""
+    force and the JAX package's DMA-kernel route exactly, with either
+    intersector; a two-cluster shortlist drops candidates (K = 4), so the
+    fallback walk runs too."""
     jnp, JVec3 = scene["jnp"], scene["JVec3"]
     o, d, mask = rays("camera")
     if not masked:
         mask = np.ones_like(mask)
-    kw = dict(tile_size=64, max_clusters=4, sort=True)
+    kw = dict(tile_size=64, max_clusters=2, sort=True,
+              intersector=intersector)
     monkeypatch.setattr(tk1, "RESIDENT_VMEM_BUDGET", 1024)
     tpd = scene["tpd"]
     assert tpk.route(tpd.num_clusters, tpd.cluster_size) == "stream"
@@ -109,7 +120,10 @@ def test_trace_packets_stream_route(scene, monkeypatch, masked):
         fine_td=scene["jtd"], mask=jnp.asarray(mask),
         engine="pallas_interpret", **kw)
     brute = ttrav.trace_bruteforce(tv(o), tv(d), scene["ts"],
-                                   mask=torch.from_numpy(mask))
+                                   mask=torch.from_numpy(mask),
+                                   intersector=intersector)
+    assert bool(torch.isfinite(tpk.build_shortlists(
+        tv(o), tv(d), torch.from_numpy(mask), tpd, 64, 2).U).any())
     np.testing.assert_array_equal(hit.tri.numpy(), brute.tri.numpy())
     np.testing.assert_array_equal(hit.t.numpy(), brute.t.numpy())
     np.testing.assert_array_equal(hit.tri.numpy(), np.asarray(ref.tri))
@@ -118,21 +132,24 @@ def test_trace_packets_stream_route(scene, monkeypatch, masked):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cluster_size", [128, 512, 1024])
-def test_cuda_kernel_matches_plain_and_k1(cluster_size):
+@pytest.mark.parametrize("cluster_size,intersector",
+                         with_mt([128, 512, 1024]))
+def test_cuda_kernel_matches_plain_and_k1(cluster_size, intersector):
     """On a card: K2 equals its plain version and K1 bit for bit, at
-    cluster widths of one to eight rounds of its 128 threads, and the
-    wrapper counts the launch."""
+    cluster widths of one to eight rounds of its 128 threads, with either
+    intersector, and the wrapper counts the launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
-    sl, pack, _ = colonnade_case(cluster_size, torch.device("cuda"))
+    sl, pack, _ = colonnade_case(cluster_size, torch.device("cuda"),
+                                 intersector=intersector)
     args = (sl.ids, sl.counts, sl.entries, sl.rays, *pack)
     n = tk2.dense_intersect.launches
-    t, tri = tk2.dense_intersect(*args)
+    t, tri = tk2.dense_intersect(*args, intersector=intersector)
     torch.cuda.synchronize()
     assert tk2.dense_intersect.launches == n + 1
     for want in (tk2.dense_intersect_plain(*args),
-                 tk1.dense_intersect_resident(*args)):
+                 tk1.dense_intersect_resident(*args,
+                                              intersector=intersector)):
         np.testing.assert_array_equal(tri.cpu().numpy(), want[1].cpu().numpy())
         np.testing.assert_array_equal(t.cpu().numpy(), want[0].cpu().numpy())
     assert (tri >= 0).sum() > 100
@@ -167,24 +184,28 @@ def test_cuda_counting_instance(cluster_size):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", SYNTHETIC_CASES + ("colonnade",))
-def test_cuda_vis_instance(case):
+@pytest.mark.parametrize("case,intersector",
+                         with_mt(SYNTHETIC_CASES + ("colonnade",)))
+def test_cuda_vis_instance(case, intersector):
     """On a card: K2's visibility instance against its plain version (t bit
     for bit, the -3e38 set included; ids wherever t is not -3e38) and, in
     full, against the plain count of its block-per-tile schedule; its
-    counting instance folds what that schedule folds."""
+    counting instance folds what that schedule folds. Either
+    intersector."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
-    args = vis_case(case, 128, 128, "cuda")
+    args = vis_case(case, 128, 128, "cuda", intersector=intersector)
     n = tk2.dense_intersect.launches
-    got = tk2.dense_intersect(*args, vis_band=VIS_BAND)
+    got = tk2.dense_intersect(*args, vis_band=VIS_BAND,
+                              intersector=intersector)
     torch.cuda.synchronize()
     assert tk2.dense_intersect.launches == n + 1
     check_vis(args, got, tk2.dense_intersect_plain, group=128)
     counts = torch.empty((args[0].shape[0], tk1.COUNT_COLS),
                          dtype=torch.int64, device="cuda")
     tc, tric = tk2.dense_intersect(*args, counts_out=counts,
-                                   vis_band=VIS_BAND)
+                                   vis_band=VIS_BAND,
+                                   intersector=intersector)
     assert torch.equal(tc, got[0]) and torch.equal(tric, got[1])
     assert torch.equal(counts[:, 0], tk1.fold_schedule(
         *args, 128, vis_band=VIS_BAND)[2])

@@ -2,16 +2,17 @@
 dense_super.py), and the packet engine's super route.
 
 Its plain version is held against the JAX package's Pallas kernel
-dense_intersect_resident_super(..., super_factor=2, bw=True,
-interpret=True) on identical super shortlists, at C = 128: triangle ids
-exactly, t to rtol 1e-6 / atol 1e-6 (tests/test_packets.py:247). The scene
+dense_intersect_resident_super(..., super_factor=2, interpret=True) on
+identical super shortlists, at C = 128: triangle ids exactly, t to rtol
+1e-6 / atol 1e-6 (tests/test_packets.py:247) with Baldwin-Weber (bw=True),
+bit for bit with Moller-Trumbore (bw=False). The scene
 is tests/test_packets.py:389-426's at subdiv 3 (1,316 triangles, K = 16
 clusters): at subdiv 2, K = 4 is not above 2F, so both packages leave the
 super route for the resident one there. trace_packets with
 two_level="super", super_factor=2 equals brute force and the JAX package's
 trace_packets(engine="pallas_interpret") exactly, with the whole super list
 (255) and with a one-super list, which forces the dropped-super bound U and
-the fine-BVH fallback.
+the fine-BVH fallback, with either intersector.
 
 The CUDA kernel runs only on a card: its case is marked ``cuda`` and skips
 elsewhere. The JAX package is imported only by the cases that compare
@@ -24,7 +25,7 @@ import pytest
 import torch
 from torch_fold_cases import (VIS_BAND, check_vis, colonnade_case,
                               jax_scene, packet_data, rays, shortlists, tv,
-                              vis_case)
+                              vis_case, with_mt)
 
 import cudapathtracer_tpu_torch as T
 from cudapathtracer_tpu_torch.models import procedural as tproc
@@ -88,22 +89,27 @@ def test_expand_supers():
     assert e[0, :4].tolist() == [0.5, 0.5, 1.0, 1.0]
 
 
-@pytest.mark.parametrize("kind,sort", [("camera", False), ("camera", True),
-                                       ("random", True)])
-def test_plain_matches_pallas_interpret(scene, kind, sort):
+@pytest.mark.parametrize("kind,sort,intersector", with_mt(
+    [("camera", False), ("camera", True), ("random", True)]))
+def test_plain_matches_pallas_interpret(scene, kind, sort, intersector):
+    mt = intersector == "mt"
     sl = _shortlists(scene["tpd"], kind, sort)
     assert int(sl.counts.max()) >= 2
     t, tri = tk3.dense_intersect_super_plain(
-        sl.ids, sl.counts, sl.entries, sl.rays, *scene["pack"], F)
+        sl.ids, sl.counts, sl.entries, sl.rays,
+        *scene["pack_mt" if mt else "pack"], F)
     jnp = scene["jnp"]
     jt, jtri = scene["jdr"].dense_intersect_resident_super(
         jnp.asarray(sl.ids.numpy()), jnp.asarray(sl.counts.numpy()),
         jnp.asarray(sl.entries.numpy()), jnp.asarray(sl.rays.numpy()),
-        scene["jpack"], scene["jboxes"], scene["js"].num_tris,
-        super_factor=F, interpret=True, bw=True)
+        scene["jpack_mt" if mt else "jpack"], scene["jboxes"],
+        scene["js"].num_tris, super_factor=F, interpret=True, bw=not mt)
     np.testing.assert_array_equal(tri.numpy(), np.asarray(jtri))
-    np.testing.assert_allclose(t.numpy(), np.asarray(jt), rtol=1e-6,
-                               atol=1e-6)
+    if mt:
+        np.testing.assert_array_equal(t.numpy(), np.asarray(jt))
+    else:
+        np.testing.assert_allclose(t.numpy(), np.asarray(jt), rtol=1e-6,
+                                   atol=1e-6)
     assert (tri.numpy() >= 0).sum() > 100
 
 
@@ -147,15 +153,15 @@ def test_needed_work_counts_members(scene, kind):
     assert 0 < tests <= int((m_counts * live).sum()) * C
 
 
-@pytest.mark.parametrize("super_list", [255, 1])
-def test_trace_packets_super_route(scene, super_list):
+@pytest.mark.parametrize("super_list,intersector", with_mt([255, 1]))
+def test_trace_packets_super_route(scene, super_list, intersector):
     """The super route equals brute force and the JAX package's super
-    route exactly; super_list = 1 drops supers, so U is finite and the
-    fine-BVH fallback runs."""
+    route exactly, with either intersector; super_list = 1 drops supers,
+    so U is finite and the fine-BVH fallback runs."""
     jnp, JVec3 = scene["jnp"], scene["JVec3"]
     o, d, mask = rays("camera")
     kw = dict(tile_size=64, sort=True, two_level="super", super_factor=F,
-              super_list=super_list)
+              super_list=super_list, intersector=intersector)
     tpd = scene["tpd"]
     assert tpk.route(tpd.num_clusters, tpd.cluster_size, "super", F) \
         == "super"
@@ -169,7 +175,8 @@ def test_trace_packets_super_route(scene, super_list):
         fine_td=scene["jtd"], mask=jnp.asarray(mask),
         engine="pallas_interpret", **kw)
     brute = ttrav.trace_bruteforce(tv(o), tv(d), scene["ts"],
-                                   mask=torch.from_numpy(mask))
+                                   mask=torch.from_numpy(mask),
+                                   intersector=intersector)
     np.testing.assert_array_equal(hit.tri.numpy(), brute.tri.numpy())
     np.testing.assert_array_equal(hit.t.numpy(), brute.t.numpy())
     np.testing.assert_array_equal(hit.tri.numpy(), np.asarray(ref.tri))
@@ -219,22 +226,26 @@ def test_cuda_kernel_matches_plain(kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cluster_size", [128, 512, 1024])
-def test_cuda_kernel_at_cluster_widths(cluster_size):
+@pytest.mark.parametrize("cluster_size,intersector",
+                         with_mt([128, 512, 1024]))
+def test_cuda_kernel_at_cluster_widths(cluster_size, intersector):
     """On a card, at F = 8 on colonnade subdiv 3: K3 equals its plain
     version bit for bit at cluster widths of one to eight rounds of its 128
-    threads; its counting instance returns the same hits, folds at most the
-    listed members and issues at least the tests the rays need."""
+    threads, with either intersector; its counting instance returns the
+    same hits, folds at most the listed members and issues at least the
+    tests the rays need."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
     f = 8
     sl, pack, num_tris = colonnade_case(cluster_size, torch.device("cuda"),
-                                        super_factor=f)
+                                        super_factor=f,
+                                        intersector=intersector)
     args = (sl.ids, sl.counts, sl.entries, sl.rays, *pack)
-    t, tri = tk3.dense_intersect_super(*args, f)
+    t, tri = tk3.dense_intersect_super(*args, f, intersector=intersector)
     counts = torch.empty((sl.ids.shape[0], tk1.COUNT_COLS),
                          dtype=torch.int64, device="cuda")
-    tc, tric = tk3.dense_intersect_super(*args, f, counts_out=counts)
+    tc, tric = tk3.dense_intersect_super(*args, f, counts_out=counts,
+                                         intersector=intersector)
     pt, ptri = tk3.dense_intersect_super_plain(*args, f)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(tri.cpu().numpy(), ptri.cpu().numpy())
@@ -262,8 +273,9 @@ def test_vis_band_super_plain():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cluster_size", [128, 256, 1024])
-def test_cuda_vis_instance(cluster_size):
+@pytest.mark.parametrize("cluster_size,intersector",
+                         with_mt([128, 256, 1024]))
+def test_cuda_vis_instance(cluster_size, intersector):
     """On a card, at F = 8 on colonnade subdiv 3 with caps near each ray's
     closest hit: K3's visibility instance against its plain version, t bit
     for bit (the -3e38 set included) and ids wherever t is not -3e38; its
@@ -272,14 +284,16 @@ def test_cuda_vis_instance(cluster_size):
         pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
     f = 8
     args = vis_case("colonnade", cluster_size, 128, "cuda", F=f,
-                    fold=_super_plain(f))
+                    fold=_super_plain(f), intersector=intersector)
     n = tk3.dense_intersect_super.launches
-    got = tk3.dense_intersect_super(*args, f, vis_band=VIS_BAND)
+    got = tk3.dense_intersect_super(*args, f, vis_band=VIS_BAND,
+                                    intersector=intersector)
     torch.cuda.synchronize()
     assert tk3.dense_intersect_super.launches == n + 1
     assert check_vis(args, got, _super_plain(f)) > 0
     counts = torch.empty((args[0].shape[0], tk1.COUNT_COLS),
                          dtype=torch.int64, device="cuda")
     tc, tric = tk3.dense_intersect_super(*args, f, counts_out=counts,
-                                         vis_band=VIS_BAND)
+                                         vis_band=VIS_BAND,
+                                         intersector=intersector)
     assert torch.equal(tc, got[0]) and torch.equal(tric, got[1])

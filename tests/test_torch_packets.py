@@ -5,7 +5,9 @@ the cases of tests/test_packets.py: primary rays, incoherent sorted rays, a
 mask, a ray count that is not a multiple of the tile, and the overflow
 fallback through the fine BVH with a tiny shortlist. Then the caller's cap
 (``t_cap``) and visibility-only queries (``vis_band``), against the JAX
-package's capped query and its Pallas kernels in interpret mode.
+package's capped query and its Pallas kernels in interpret mode; and the
+Moller-Trumbore intersector on the resident route, against both JAX
+engines.
 
 Triangle ids match exactly. t equals the port's brute force bit for bit;
 against the JAX engine it is held to rtol 1e-6 (tests/test_packets.py:202),
@@ -398,6 +400,37 @@ def test_vis_band_matches_jax_kernels(capped, route, monkeypatch):
     ref = np.abs(np.asarray(capped["jclosest"].t) - ln) <= eps
     np.testing.assert_array_equal(vis, ref)
     assert (~live).sum() > 0 and vis.sum() > 0
+
+
+@pytest.mark.parametrize("engine", ["xla", "pallas_interpret"])
+def test_mt_resident_route_matches_jax(capped, engine):
+    """trace_packets(intersector="mt") on the resident route (C = 128,
+    K = 16) with a two-cluster shortlist, so that the plain fold and the
+    fine-BVH fallback both run: ids and t equal to the JAX package's
+    trace_packets(intersector="mt") on its XLA engine and on its Pallas
+    kernel in interpret mode, and to brute force's."""
+    ts_, tpd, ttd, sc = capped["scenes"]["c128"]
+    o, d = capped["o"], capped["d"]
+    kw = dict(tile_size=64, max_clusters=2, sort=True, intersector="mt")
+    assert tpk.route(tpd.num_clusters, tpd.cluster_size) == "resident"
+    calls = tk1.dense_intersect_resident_plain.calls
+    hit = tpk.trace_packets(o, d, tpd, fine_td=ttd, **kw)
+    assert tk1.dense_intersect_resident_plain.calls == calls + 1
+    on = torch.ones_like(o.x, dtype=torch.bool)
+    perm = tpk.sort_rays(o, d, on, tpd)
+    sl = tpk.build_shortlists(o.map(lambda c: c[perm]),
+                              d.map(lambda c: c[perm]), on, tpd, 64, 2)
+    u = sl.U.repeat_interleave(64)[:o.x.shape[0]]
+    assert int((hit.t[perm] >= u).sum()) > 0          # the fallback ran
+    ref = sc["jpk"].trace_packets(
+        JVec3(*(jnp.asarray(c.numpy()) for c in o)),
+        JVec3(*(jnp.asarray(c.numpy()) for c in d)), sc["jpd"],
+        fine_td=sc["jtd"], engine=engine, **kw)
+    brute = ttrav.trace_bruteforce(o, d, ts_, intersector="mt")
+    for want in (ref, brute):
+        np.testing.assert_array_equal(hit.tri.numpy(), np.asarray(want.tri))
+        np.testing.assert_array_equal(hit.t.numpy(), np.asarray(want.t))
+    assert int((hit.tri >= 0).sum()) > 100
 
 
 def test_vis_band_needs_t_cap(setup):

@@ -1,13 +1,16 @@
 """The port's PT+NEE render (cudapathtracer_tpu_torch) end to end on the
-CPU: per-pixel accumulators against the JAX package's render, the pt_nee
-goldens under tests/test_goldens.py:_check's rule, resuming (within the port
-and from a JAX state carried over by convert.py), and a render in a process
-where JAX cannot be imported.
+CPU: per-pixel accumulators against the JAX package's render (both
+intersectors, triangle meshes and analytic spheres), the three traversal
+engines against each other, the pt_nee goldens and the BVH falsecolor golden
+under tests/test_goldens.py:_check's rule, resuming (within the port and from
+a JAX state carried over by convert.py), and a render in a process where JAX
+cannot be imported.
 
 Tolerance: rtol 3e-6 per pixel (atol 1e-7), the tolerance the JAX package's
 packet path is held to between engines: hits are identical, while the shading
 arithmetic around them rounds differently in the last bits (XLA's cos, sin
-and rsqrt are not torch's)."""
+and rsqrt are not torch's). The rule admits the one host-dependent residue
+that ``torch_fold_cases.assert_pixels_close`` names."""
 
 import os
 import subprocess
@@ -16,6 +19,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch_fold_cases import MT_SEAM_FLIP_SHARE, assert_pixels_close
 
 import cudapathtracer_tpu as J
 from cudapathtracer_tpu.models import procedural as jproc
@@ -42,53 +46,93 @@ GOLDENS = os.path.join(REPO, "tests", "goldens")
 SCENES = {
     "cornell": ("cornell_box", {}),
     "sphere_mesh": ("cornell_with_sphere_mesh", {"subdiv": 2}),
+    # a Scene already, with one analytic sphere beside the box
+    "analytic_sphere": ("cornell_with_analytic_sphere", None),
 }
 
 
-def _cfg(pkg, w, spp):
+def _cfg(pkg, w, spp, **kw):
     return pkg.RenderConfig(width=w, height=w, spp=spp, integrator="pt_nee",
-                            samples_per_call=spp)
+                            samples_per_call=spp, **kw)
 
 
-def _jax_render(scene, w, spp, seed, state=None):
+def _jax_scene(scene):
     name, kw = SCENES[scene]
-    return J.render(jproc.to_scene(getattr(jproc, name)(**kw)),
-                    J.make_camera(width=w, height=w), _cfg(J, w, spp),
-                    seed=seed, state=state)
+    if kw is None:
+        return getattr(jproc, name)()
+    return jproc.to_scene(getattr(jproc, name)(**kw))
 
 
-def _port_render(scene, w, spp, seed, state=None):
+def _port_scene(scene):
     name, kw = SCENES[scene]
-    return T.render(tproc.to_scene(getattr(tproc, name)(**kw), "cpu"),
+    if kw is None:
+        return getattr(tproc, name)(device="cpu")
+    return tproc.to_scene(getattr(tproc, name)(**kw), "cpu")
+
+
+def _jax_render(scene, w, spp, seed, state=None, **kw):
+    return J.render(_jax_scene(scene), J.make_camera(width=w, height=w),
+                    _cfg(J, w, spp, **kw), seed=seed, state=state)
+
+
+def _port_render(scene, w, spp, seed, state=None, **kw):
+    return T.render(_port_scene(scene),
                     T.make_camera(width=w, height=w, device="cpu"),
-                    _cfg(T, w, spp), seed=seed, state=state, device="cpu")
+                    _cfg(T, w, spp, **kw), seed=seed, state=state,
+                    device="cpu")
 
 
 @pytest.fixture(scope="module")
 def jax_ref():
     """The JAX package's renders, built once (XLA:CPU compiles pile up;
-    pytest.ini)."""
-    return {
-        ("cornell", 4): _jax_render("cornell", 16, 4, seed=9),
-        ("sphere_mesh", 2): _jax_render("sphere_mesh", 16, 2, seed=9),
-        ("cornell", 3): _jax_render("cornell", 16, 3, seed=3),
-        ("cornell", 6): _jax_render("cornell", 16, 6, seed=3),
+    pytest.ini); keyed (scene, spp, intersector)."""
+    out = {
+        ("cornell", 3, "bw"): _jax_render("cornell", 16, 3, seed=3),
+        ("cornell", 6, "bw"): _jax_render("cornell", 16, 6, seed=3),
     }
+    for scene, spp, isect in PER_PIXEL:
+        out[scene, spp, isect] = _jax_render(scene, 16, spp, seed=9,
+                                             intersector=isect)
+    return out
 
 
-def _close(port_state, jax_state):
-    for a, b in zip(port_state.img, jax_state.img):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=3e-6,
-                                   atol=1e-7)
+def _close(port_state, jax_state, intersector="bw"):
+    assert_pixels_close(
+        port_state.img, jax_state.img,
+        MT_SEAM_FLIP_SHARE if intersector == "mt" else 0.0)
 
 
-@pytest.mark.parametrize("scene,spp", [("cornell", 4), ("sphere_mesh", 2)])
-def test_render_matches_jax_per_pixel(jax_ref, scene, spp):
-    want = jax_ref[scene, spp]
-    got = _port_render(scene, 16, spp, seed=9)
+# (scene, spp, intersector); the Baldwin-Weber cases keep the ids they had
+# before the others joined them
+PER_PIXEL = (("cornell", 4, "bw"), ("sphere_mesh", 2, "bw"),
+             ("analytic_sphere", 4, "bw"), ("sphere_mesh", 2, "mt"),
+             ("analytic_sphere", 4, "mt"))
+
+
+@pytest.mark.parametrize("scene,spp,intersector", [
+    pytest.param(*c, id=f"{c[0]}-{c[1]}" + ("-mt" if c[2] == "mt" else ""))
+    for c in PER_PIXEL])
+def test_render_matches_jax_per_pixel(jax_ref, scene, spp, intersector):
+    want = jax_ref[scene, spp, intersector]
+    got = _port_render(scene, 16, spp, seed=9, intersector=intersector)
     assert got.n == int(want.n) == spp
-    _close(got, want)
+    _close(got, want, intersector)
     assert float(got.img.x.max()) > 0
+
+
+@pytest.mark.parametrize("scene", ["sphere_mesh", "analytic_sphere"])
+@pytest.mark.parametrize("intersector", ["bw", "mt"])
+def test_engines_render_alike(scene, intersector):
+    """The fine-BVH walk and brute force render the same image bit for bit
+    (the same hits, the same shading), and the packet engine's image under
+    the per-pixel rule (its hits are theirs too)."""
+    imgs = {tr: _port_render(scene, 16, 2, seed=9, traversal=tr,
+                             intersector=intersector)
+            for tr in ("bvh", "brute", "packets")}
+    for a, b in zip(imgs["bvh"].img, imgs["brute"].img):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert_pixels_close(imgs["bvh"].img, imgs["packets"].img)
+    assert float(imgs["bvh"].img.x.max()) > 0
 
 
 def _check(state, cfg, name, tol=2):
@@ -115,6 +159,24 @@ def test_golden_analytic_sphere():
     _check(st, cfg, "cornell_sphere_pt_nee_32_spp8.ppm")
 
 
+def test_golden_bvh_falsecolor():
+    """colonnade_bvh_falsecolor_64.ppm (tests/test_goldens.py:78-92):
+    per-ray node visits of the fine-BVH walk as a falsecolor image."""
+    from cudapathtracer_tpu_torch.render.renderer import build_bvh_for_scene
+    from cudapathtracer_tpu_torch.utils.profiling import falsecolor_state
+
+    scene = tproc.to_scene(tproc.colonnade(subdiv=2), "cpu")
+    cfg = T.RenderConfig(width=64, height=64, spp=1, samples_per_call=1,
+                         integrator="pt_nee")
+    cam = T.make_camera(pos=(0.0, 2.0, 3.4), width=64, height=64,
+                        focal_length=2.0, device="cpu")
+    st, stats = falsecolor_state(scene, build_bvh_for_scene(scene,
+                                                            cfg.leaf_size),
+                                 cam, cfg, seed=1234)
+    assert st.n == 1 and int(stats.ray_visits.max()) > 0
+    _check(st, cfg, "colonnade_bvh_falsecolor_64.ppm")
+
+
 def test_resume_equals_straight_run():
     full = _port_render("cornell", 16, 6, seed=3)
     part = _port_render("cornell", 16, 3, seed=3)
@@ -127,8 +189,8 @@ def test_resume_equals_straight_run():
 def test_resume_from_jax_state(jax_ref):
     """A render begun in JAX (3 spp) and finished in the port (to 6 spp)
     matches JAX's straight 6 spp render."""
-    part = jax_ref["cornell", 3]
-    full = jax_ref["cornell", 6]
+    part = jax_ref["cornell", 3, "bw"]
+    full = jax_ref["cornell", 6, "bw"]
     state = convert.accum_from_jax(convert.to_numpy_dict(part), "cpu")
     assert state.n == 3
     resumed = _port_render("cornell", 16, 6, seed=3, state=state)

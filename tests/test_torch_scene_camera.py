@@ -45,7 +45,8 @@ def test_render_config_defaults_field_by_field():
 
 
 # each case keeps the id it had while the list also held the knobs that
-# are ported since (integrator="bdpt", vis_dropout, tile_size_vis)
+# are ported since (integrator="bdpt", vis_dropout, tile_size_vis; kw7
+# intersector="mt" and kw8 traversal="bvh" moved to the accepted list)
 @pytest.mark.parametrize("kw,knob", [
     pytest.param(kw, knob, id=f"kw{i}-{knob}") for i, (kw, knob) in (
         (1, (dict(packet_rounds=2), "packet_rounds")),
@@ -53,8 +54,6 @@ def test_render_config_defaults_field_by_field():
         (3, (dict(sort_window=256), "sort_window")),
         (4, (dict(two_level_cull=True), "two_level_cull")),
         (5, (dict(two_level_cull="super", super_slots=4), "super_slots")),
-        (7, (dict(intersector="mt"), "intersector")),
-        (8, (dict(traversal="bvh"), "traversal")),
         (9, (dict(packet_engine="xla"), "packet_engine")),
         (10, (dict(warm_start=2), "warm_start")),
         (11, (dict(ray_groups=2), "ray_groups")),
@@ -75,11 +74,18 @@ def test_unsupported_knobs_raise(kw, knob):
     dict(integrator="bdpt"),
     dict(integrator="bdpt", vis_dropout=True),
     dict(integrator="bdpt", tile_size_vis=64),
-])
+] + [pytest.param(kw, id=i) for i, kw in (
+    ("kw7-intersector", dict(intersector="mt")),
+    ("kw8-traversal", dict(traversal="bvh")),
+    ("traversal-brute", dict(traversal="brute")),
+    ("bdpt-brute-mt", dict(integrator="bdpt", traversal="brute",
+                           intersector="mt")),
+)])
 def test_super_cull_knobs_accepted(kw):
     """The super cull and its knobs are ported (only super_slots, which the
     capped two-level cull alone reads, stays at its default), and so are
-    BDPT and its visibility knobs."""
+    BDPT and its visibility knobs, the Moller-Trumbore intersector and the
+    fine-BVH and brute-force engines."""
     check_supported(T.RenderConfig(**{"integrator": "pt_nee", **kw}))
 
 

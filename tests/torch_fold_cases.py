@@ -1,6 +1,7 @@
 """Inputs shared by the tests of the port's dense fold kernels K1, K2 and K3
 (tests/test_torch_dense_*.py): rays made with numpy or the port's camera,
-the port's packet data and shortlists, and the same scene on the JAX side.
+the port's packet data and shortlists, and the same scene on the JAX side;
+and the per-pixel rule of the render tests (``assert_pixels_close``).
 
 The JAX package is imported only inside ``jax_scene``, so the kernels'
 ``cuda`` cases also run where JAX is not installed."""
@@ -57,13 +58,29 @@ def shortlists(tpd, kind, sort, max_clusters=16, **kw):
     return tpk.build_shortlists(o, d, mask, tpd, 64, max_clusters, **kw)
 
 
+def with_mt(cases):
+    """pytest params of each case (a tuple) with 'bw' and then 'mt'
+    appended, the Baldwin-Weber ones under the ids they had before the
+    Moller-Trumbore ones joined them."""
+    import pytest
+
+    out = []
+    for c in cases:
+        c = c if isinstance(c, tuple) else (c,)
+        base = "-".join(str(v) for v in c)
+        out.append(pytest.param(*c, "bw", id=base))
+        out.append(pytest.param(*c, "mt", id=f"{base}-mt"))
+    return out
+
+
 SYNTHETIC_CASES = ("ties", "masked", "cap_is_hit", "negative_cap", "padding",
                    "max_float_cap", "band")
 # the visibility band of BDPT's connection rays: 3 * EPS_VISIBILITY
 VIS_BAND = 0.03
 
 
-def synthetic_case(case, C, P, dev="cpu", tiles=4, K=6, seed=0):
+def synthetic_case(case, C, P, dev="cpu", tiles=4, K=6, seed=0,
+                   intersector="bw"):
     """A made-up scene of K clusters of C triangles and ``tiles`` tiles of P
     rays from a seed (numpy), for the fold's corner cases:
 
@@ -83,6 +100,9 @@ def synthetic_case(case, C, P, dev="cpu", tiles=4, K=6, seed=0):
       VIS_BAND below to twice VIS_BAND above it (``band_caps``), so that a
       visibility query (vis_band = VIS_BAND) retires some rays and keeps
       others.
+
+    The pack is ``intersector``'s; padding and the sentinel are all-zero
+    rows in either layout.
 
     -> (kernel inputs ids, counts, entries, rays, packed, tri, boxes on
     ``dev``; the number of triangles)."""
@@ -140,7 +160,7 @@ def synthetic_case(case, C, P, dev="cpu", tiles=4, K=6, seed=0):
         TVec3(*(torch.from_numpy(o[:, k].astype(f32)) for k in range(3))),
         TVec3(*(torch.from_numpy(d[:, k].astype(f32)) for k in range(3))),
         torch.from_numpy(mask), pd, P, K)
-    pack = tk1.pack_clusters(pd)
+    pack = tk1.pack_clusters(pd, intersector)
     rays = sl.rays.clone()
     if case == "cap_is_hit":
         t, tri = tk1.plain_fold(sl.ids, sl.counts, sl.entries, rays, *pack)
@@ -172,16 +192,17 @@ def band_caps(args, rng, fold=tk1.plain_fold):
     return (ids, counts, entries, rays.contiguous(), packed, tri, boxes)
 
 
-def vis_case(case, C, P, dev="cpu", fold=tk1.plain_fold, F=None):
+def vis_case(case, C, P, dev="cpu", fold=tk1.plain_fold, F=None,
+             intersector="bw"):
     """Inputs for a visibility query: a synthetic case, or ("colonnade")
     colonnade subdiv 3 with band caps (in super units of F with ``F``, and
-    then ``fold`` K3's plain version)."""
+    then ``fold`` K3's plain version), with ``intersector``'s pack."""
     if case == "colonnade":
         sl, pack, _ = colonnade_case(C, torch.device(dev), super_factor=F,
-                                     tile_size=P)
+                                     tile_size=P, intersector=intersector)
         return band_caps((sl.ids, sl.counts, sl.entries, sl.rays, *pack),
                          np.random.default_rng(11), fold)
-    return synthetic_case(case, C, P, dev)[0]
+    return synthetic_case(case, C, P, dev, intersector=intersector)[0]
 
 
 def check_vis(args, got, fold=tk1.plain_fold, group=None):
@@ -214,11 +235,12 @@ def check_vis(args, got, fold=tk1.plain_fold, group=None):
     return int((below & live).sum())
 
 
-def colonnade_case(cluster_size, dev, super_factor=None, tile_size=128):
+def colonnade_case(cluster_size, dev, super_factor=None, tile_size=128,
+                   intersector="bw"):
     """32^2 sorted camera rays (every 7th masked) of colonnade subdiv 3 at
     cluster width ``cluster_size``, tiled by ``tile_size``: (shortlists,
-    pack) on ``dev``, in super units with ``super_factor``, and the triangle
-    count."""
+    ``intersector``'s pack) on ``dev``, in super units with
+    ``super_factor``, and the triangle count."""
     ts = tproc.to_scene(tproc.colonnade(subdiv=3), "cpu")
     tpd = packet_data(
         build_bvh_for_scene(ts, 4, cluster_size=cluster_size), ts)
@@ -231,13 +253,14 @@ def colonnade_case(cluster_size, dev, super_factor=None, tile_size=128):
                               d.map(lambda c: c[perm]), mask[perm], tpd,
                               tile_size, 4095, super_factor=super_factor)
     sl = type(sl)(*(a.to(dev) for a in sl))
-    pack = tuple(a.to(dev) for a in tk1.pack_clusters(tpd))
+    pack = tuple(a.to(dev) for a in tk1.pack_clusters(tpd, intersector))
     return sl, pack, ts.num_tris
 
 
 def jax_scene(subdiv):
     """cornell_with_sphere_mesh(subdiv) at C = 128 in both packages: the
-    port's packet data, trace data and pack beside the JAX package's, with
+    port's packet data, trace data and packs beside the JAX package's (the
+    Baldwin-Weber ones, and the Moller-Trumbore ones under ``*_mt``), with
     the JAX modules the tests call."""
     import jax.numpy as jnp
 
@@ -261,5 +284,57 @@ def jax_scene(subdiv):
                 ts=ts, tpd=tpd, ttd=ttrav.make_trace_data(ts, ta.fine),
                 pack=tk1.pack_clusters(tpd),
                 jpack=jdr.pack_clusters_resident_bw(jpd),
+                pack_mt=tk1.pack_clusters(tpd, "mt"),
+                jpack_mt=jdr.pack_clusters_resident(jpd),
                 jboxes=jdr.pack_cluster_boxes(jpd), jd=jd, jdr=jdr,
                 jpk=jpk, jnp=jnp, JVec3=JVec3)
+
+
+# the per-pixel rule of the port's renders against the JAX package's
+PIXEL_RTOL = 3e-6
+PIXEL_ATOL = 1e-7
+# the host-dependent residue it admits: a share of the values, and its bound
+PIXEL_RESIDUE_SHARE = 0.01
+PIXEL_RESIDUE_RTOL = 1e-4
+# the share of pixels a Moller-Trumbore render may flip on a seam
+MT_SEAM_FLIP_SHARE = 0.01
+
+
+def assert_pixels_close(got, want, seam_flip_share=0.0):
+    """A port render's per-pixel accumulators ``got`` (Vec3 of tensors)
+    against the JAX package's ``want``: every value within rtol 3e-6 (atol
+    1e-7), except at most 1% of the values, which must stay within rtol
+    1e-4 but on at most ``seam_flip_share`` of the pixels.
+
+    The exception admits one gap and nothing more: XLA:CPU computes the
+    normalize of the camera's and the samplers' directions (1 / sqrt,
+    render/camera.py, ops/sampling.py) as the CPU's ``vrsqrtps`` estimate
+    refined by one Newton step, and that estimate's bits differ between
+    processors, so on some hosts a few directions come out an ulp from the
+    correctly rounded ones the port computes. Where a path then cancels,
+    the ulp grows: on an AVX-512 Xeon, pixel 22 (Morton) of the 16^2
+    ``cornell_with_sphere_mesh(subdiv=2)`` BDPT render (seed 9, 2 spp) has
+    its camera direction 1 ulp off in each component, its first hit 1 ulp
+    off in y, and the light connection from there (y extent 0.0186) weighs
+    1.35e-5 relative more in all three channels. With Moller-Trumbore
+    (``seam_flip_share`` = MT_SEAM_FLIP_SHARE) the same ulp can also flip a
+    ray's hit on the seam between two triangles, where MT's rounding can
+    reject both (tests/test_packets.py:364-376): on that host, pixel 162 of
+    every 16^2 pt_nee MT render (seed 9). With the JAX package's normalize
+    made correctly rounded, both renders agree with the port's to rtol
+    2.2e-7."""
+    n = off = 0
+    far = None
+    for a, b in zip(got, want):
+        a, b = a.numpy(), np.asarray(b)
+        assert a.shape == b.shape
+        gap = np.abs(a - b)
+        off += int((gap > PIXEL_ATOL + PIXEL_RTOL * np.abs(b)).sum())
+        f = gap > PIXEL_ATOL + PIXEL_RESIDUE_RTOL * np.abs(b)
+        far = f if far is None else far | f
+        n += a.size
+    assert off <= PIXEL_RESIDUE_SHARE * n, (
+        f"{off} of {n} values differ by more than rtol {PIXEL_RTOL}")
+    assert int(far.sum()) <= seam_flip_share * far.size, (
+        f"pixels {np.flatnonzero(far).tolist()} differ by more than rtol "
+        f"{PIXEL_RESIDUE_RTOL}")

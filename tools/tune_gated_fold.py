@@ -12,9 +12,10 @@ every build of that path's kernel on them. The paths:
   as its wrapper builds it (``k2``), and each ``--baseline NAME=SRC``:
   another K1 source, built with the headers beside it, e.g. an earlier
   commit's ``csrc/dense_resident.cu`` unpacked with ``git archive`` or a
-  design to try against the shipped one (its launch takes K after C, as
-  this one's does, or not, as the ray-stationary K1's did; the tool reads
-  which from the source);
+  design to try against the shipped one (its launch takes K after C and
+  the pack's rows after K, as this one's does, K alone, as the K1 before
+  the Moller-Trumbore instance did, or neither, as the ray-stationary K1
+  did; the tool reads which from the source);
 * stream: colonnade subdiv 6, adaptive C = 1024, K2 (``csrc/dense.cu``) at
   each cap;
 * super: colonnade subdiv 5, C = 256, super_factor 8, K3
@@ -76,17 +77,18 @@ PATHS = {
     "super": (5, SUPER, "k3"),
 }
 # family: (source, launch symbol, its int arguments)
-FAMILIES = {"k1": (k1.SOURCE, "dense_resident_launch", 5),
-            "k2": (k2.SOURCE, "dense_stream_launch", 5),
-            "k3": (k3.SOURCE, "dense_super_launch", 6)}
+FAMILIES = {"k1": (k1.SOURCE, "dense_resident_launch", 6),
+            "k2": (k2.SOURCE, "dense_stream_launch", 6),
+            "k3": (k3.SOURCE, "dense_super_launch", 7)}
 
 
 def launch_ints(src):
     """The int arguments of ``dense_resident_launch`` in K1 source ``src``:
-    5 where it takes K after C, 4 where it does not. The binding also passes
-    the visibility band (0 here), a float after the ints; a source from
-    before the visibility instance ignores it (on x86-64 a float goes in a
-    vector register, so the stream argument keeps its place)."""
+    6 where it takes K and the pack's rows after C, 5 where it takes K
+    alone, 4 where it takes neither. The binding also passes the
+    visibility band (0 here), a float after the ints; a source from before
+    the visibility instance ignores it (on x86-64 a float goes in a vector
+    register, so the stream argument keeps its place)."""
     with open(src) as fh:
         text = fh.read()
     sig = text[text.index("dense_resident_launch("):]
@@ -103,7 +105,7 @@ def builds_for(family, caps, baselines, baseline_counts):
                 for cap, f in capf]
     out = [(f"k1_cap{cap}", src, sym, n, f, k1.HEADERS, True)
            for cap, f in capf]
-    out.append(("k2", k2.SOURCE, "dense_stream_launch", 5,
+    out.append(("k2", k2.SOURCE, "dense_stream_launch", 6,
                 k1.GATED_FOLD_FLAGS, k1.HEADERS, True))
     for name, path in baselines:
         path = os.path.abspath(path)
@@ -197,10 +199,8 @@ def main():
             needed = needed_work(sl, want[0], pack, scene.num_tris, F)[0]
 
             def run(name, counts_out=None):
-                fn = built[name][1]
-                n_ints = jobs[name][3]
-                extra = ((F, K) if family == "k3" else () if n_ints == 4
-                         else (K,))
+                fn = adapt(built[name][1], jobs[name][3])
+                extra = (F, K) if family == "k3" else (K,)
                 return k1.launch_fold(lambda: fn, name, *fargs, extra=extra,
                                       counts_out=counts_out)
 
@@ -259,10 +259,8 @@ def render_in_turns(label, built, jobs, names, scene, bvh, prep, cam, cfg,
     dev = cam.pos.x.device
 
     def install(name):
-        fn = built[name][1]
-        # a source whose launch takes no K
-        k1._load_kernel = ((lambda: lambda *a: fn(*a[:14], a[15]))
-                           if jobs[name][3] == 4 else (lambda: fn))
+        fn = adapt(built[name][1], jobs[name][3])
+        k1._load_kernel = lambda: fn
 
     def window():
         return cpt.render_batch(scene, bvh, cam, cfg, base_key,
@@ -287,6 +285,18 @@ def render_in_turns(label, built, jobs, names, scene, bvh, prep, cam, cfg,
                      f"(windows {rays / max(w) / 1e6:.3f}-"
                      f"{rays / min(w) / 1e6:.3f})"
                      for n, w in walls.items()))
+
+
+def adapt(fn, n_ints):
+    """A K1 or K2 launch ``fn`` of ``n_ints`` int arguments as
+    ``launch_fold`` calls it: (10 pointers, Tl, M, P, C, K, rows, vis band,
+    stream), without the rows for a source of 5 ints and without K and the
+    rows for one of 4 (K3's builds all take 7: F, K and the rows)."""
+    if n_ints == 5:
+        return lambda *a: fn(*a[:15], *a[16:])
+    if n_ints == 4:
+        return lambda *a: fn(*a[:14], *a[16:])
+    return fn
 
 
 def _timed_on(family, name):
