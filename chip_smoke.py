@@ -2,7 +2,8 @@
 
 Drives the port's render paths (PT+NEE and BDPT through the packet engine
 and its CUDA kernels K1, K2 and K3, with either triangle intersector) at
-the JAX bench's sizes, and its other two engines, and checks them:
+the JAX bench's sizes, its other two engines and its differentiable pass
+(the bench's train step), and checks them:
 
 1. device: a CUDA card is required; its name and power limit are printed;
 2. build: K1, K2, K3 (nvcc, sm_90a; each with its Baldwin-Weber and
@@ -69,7 +70,23 @@ the JAX bench's sizes, and its other two engines, and checks them:
    packet engine's visibility decisions against its closest-hit ones; one
    sample's trace calls; PATH_WINDOWS windows of 8 spp with vis_dropout
    off and on in turns, whose images must be bit-identical, K1 alone
-   launching.
+   launching;
+12. train (K1): the bench's train step (bench.py:189-225): colonnade
+   subdiv 3 at TRAIN_SIZE^2, pt_nee, 1 spp, primary hit not reused, the L2
+   loss against a key-9 target through render_grad.make_loss_fn and one
+   SGD step (lr 1e-4), interior only and with both boundary terms at
+   TRAIN_EDGE_SAMPLES samples each. Each: K1 launched once per trace call
+   of the forward and of the per-sample recompute and nothing else ran;
+   the recompute's hit ids equal the forward's bit for bit; the loss and
+   every gradient finite; a repeat's gradients within TRAIN_REPEAT_FRAC of
+   each array's largest |g|; the step's wall (median of TRAIN_STEPS after
+   a warm-up), its forward, the no-grad forward, grad Mrays/s, K1's
+   CUDA-event ms and peak memory. Then K1 on the step's bounce batch
+   against its plain version, its counting instance and bound; a central
+   finite difference of the loss in the most-seen material's albedo.x
+   (tests/test_diff.py:57's rule); render_and_grad on the card against
+   the CPU at TRAIN_PARITY_SIZE^2 with both terms (the CPU parity tests'
+   tolerances); and a BDPT render_and_grad at TRAIN_BDPT_SIZE^2.
 
 Each render path runs with every kernel's launch count and every plain
 version's call count set to 0 just before its timed windows and read just
@@ -88,9 +105,10 @@ launches are not timed and are not the path's. Each phase prints lines of
 its own; any failure raises. The line before the last is a JSON summary of
 the kernels (one K1 entry per resident path, with the bounce batch's
 numbers, dense_resident_mt/mt, dense_mt and dense_super_mt for the
-Moller-Trumbore instances, and dense_resident/bdpt with the connection
-batch's numbers and the visibility instances' times), the last line the
-device record.
+Moller-Trumbore instances, dense_resident/bdpt with the connection
+batch's numbers and the visibility instances' times, and dense_resident/train
+with K1's launches per interior train step, its time on the step's bounce
+batch and its ms summed over each step), the last line the device record.
 
 Run: python3 chip_smoke.py
 """
@@ -141,6 +159,15 @@ VIS_BAND = 0.03
 # package's own engines do
 ID_MISMATCH_MAX = 1e-5
 T_RTOL = 1e-6
+# the train step (phase 12): bench.py:189-225's size, both boundary terms
+# at a quarter of the pixels each, the timed steps, the repeat's limit (of
+# each gradient array's largest |g|), the card-vs-CPU and BDPT sizes
+TRAIN_SIZE = 256
+TRAIN_EDGE_SAMPLES = 16384
+TRAIN_STEPS = 3
+TRAIN_REPEAT_FRAC = 1e-5
+TRAIN_PARITY_SIZE = 16
+TRAIN_BDPT_SIZE = 128
 # one H100 SXM (its data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -419,6 +446,362 @@ def band_caps(rays, t, best, seed=11):
     rays = rays.clone()
     rays[:, 7] = torch.where(best >= 0, cap, rays[:, 7])
     return rays.contiguous()
+
+
+class TraceLog:
+    """Every trace call of the differentiable pass, as ``render_image_diff``
+    makes its closure (``render_grad.make_trace_fn``): each call's inputs
+    and hit ids, and whether it ran in the backward (the per-sample
+    recompute) or the forward."""
+
+    def __init__(self):
+        self.calls = []
+        self.backward = False
+
+    def __enter__(self):
+        from cudapathtracer_tpu_torch.diff import render_grad as rg
+        from cudapathtracer_tpu_torch.ops.vecmath import stop_gradient
+
+        self._rg, self._orig = rg, rg.make_trace_fn
+
+        def make(scene, cfg, bvh, prep=None):
+            base = self._orig(scene, cfg, bvh, prep)
+
+            def fn(o, d, mask, t_cap=None, vis_band=0.0):
+                h = base(o, d, mask, t_cap=t_cap, vis_band=vis_band)
+                self.calls.append((self.backward, stop_gradient(
+                    (o, d, mask, t_cap)), h.tri.clone()))
+                return h
+
+            return fn
+
+        rg.make_trace_fn = make
+        return self
+
+    def __exit__(self, *exc):
+        self._rg.make_trace_fn = self._orig
+
+    def split(self):
+        """-> (forward calls, recompute calls), each [(batch, ids)]."""
+        fwd = [(b, i) for bwd, b, i in self.calls if not bwd]
+        rec = [(b, i) for bwd, b, i in self.calls if bwd]
+        return fwd, rec
+
+
+class K1Timer:
+    """CUDA events around every K1 call of the packet engine while
+    entered: -> the calls' device ms (``ms()``), read after a
+    synchronize."""
+
+    def __init__(self):
+        self.pairs = []
+
+    def __enter__(self):
+        from cudapathtracer_tpu_torch.ops import packets
+
+        self._packets = packets
+        self._orig = packets.dense_intersect_resident
+
+        def timed(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self._orig(*a, **kw)
+            stop.record()
+            self.pairs.append((start, stop))
+            return out
+
+        packets.dense_intersect_resident = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._packets.dense_intersect_resident = self._orig
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def grads_close(label, got, want, frac, what):
+    """Each array of ``got`` within ``frac`` of its largest |g| in
+    ``want``; raises otherwise. -> the largest gap over that scale."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        if not b.numel():
+            continue
+        scale = float(b.abs().max())
+        gap = float((a.to(b.device) - b).abs().max())
+        worst = max(worst, gap / scale if scale else gap)
+        if gap > frac * scale:
+            raise AssertionError(f"{label}: {what} gap {gap} past {frac} "
+                                 f"of its largest |g| {scale}")
+    return worst
+
+
+def train_kernel_numbers(label, kernels, scene, bvh, cfg, P, batch):
+    """K1 on one batch of the train step, as the packet engine sorts and
+    shortlists it: its CUDA-event ms, its plain version on sampled tiles
+    (ids and t), its counting instance and its bound. -> the numbers of
+    its kernels-line entry."""
+    from cudapathtracer_tpu_torch.ops.kernels.dense_resident import k1_group
+    from cudapathtracer_tpu_torch.ops.kernels.work import (OPS_PER_TEST,
+                                                           needed_work)
+    from cudapathtracer_tpu_torch.render import renderer
+
+    _, wrap, plain = kernels["k1"]
+    prep = renderer.make_packet_prep(scene, bvh)
+    pack = prep.resident_pack
+    sl = sorted_shortlists(batch, prep.pdata, P, cfg)
+    args = (sl.ids, sl.counts, sl.entries, sl.rays, *pack)
+    got = wrap(*args)
+    wrap(*args)
+    ms = cuda_ms(lambda: wrap(*args), 5)
+    part = sample_tiles(sl, SAMPLE_TILES)
+    pargs = (part.ids, part.counts, part.entries, part.rays, *pack)
+    want_p, plain_ms = host_ms(lambda: plain(*pargs))
+    _, gap = agreement(f"kernel[{label}] k1 vs plain on {part.ids.shape[0]} "
+                       "sampled tiles", wrap(*pargs), want_p, part.rays)
+    tests, _, nbytes = needed_work(sl, got[0], pack, scene.num_tris)
+    bnd = bound(tests, nbytes, OPS_PER_TEST["bw"])
+    _, issued = fold_counts(f"fold[{label}]", "k1", wrap, args, got,
+                            int(sl.counts.sum()) * (P // k1_group(P)), tests)
+    print(f"kernel[{label}]: tiles={sl.ids.shape[0]} k1_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.1f} (on {part.ids.shape[0]} tiles) "
+          f"tests={tests} bytes={nbytes} bound_ms={bnd[0]:.4f} "
+          f"bound_by={bnd[1]}")
+    return dict(ms=ms, plain_ms=plain_ms, bound=bnd, max_abs=gap,
+                tiles=sl.ids.shape[0], plain_tiles=part.ids.shape[0],
+                issued=issued, needed=tests)
+
+
+def train_phase(dev, kernels, size=TRAIN_SIZE,
+                edge_samples=TRAIN_EDGE_SAMPLES, parity_size=TRAIN_PARITY_SIZE,
+                bdpt_size=TRAIN_BDPT_SIZE, subdiv=3):
+    """Phase 12: the bench's train step (bench.py:189-225) on the card,
+    interior only and with both boundary terms, and its checks. -> the
+    dense_resident/train entry of the kernels line."""
+    import cudapathtracer_tpu_torch as cpt
+    from cudapathtracer_tpu_torch.diff import render_grad as rg
+    from cudapathtracer_tpu_torch.diff.edge_sampling import build_edge_table
+    from cudapathtracer_tpu_torch.models import procedural
+    from cudapathtracer_tpu_torch.ops import packets
+    from cudapathtracer_tpu_torch.ops.rng import prng_key
+    from cudapathtracer_tpu_torch.render import renderer
+
+    scene = procedural.to_scene(procedural.colonnade(subdiv=subdiv), dev)
+    cfg = cpt.RenderConfig(width=size, height=size, spp=1,
+                           samples_per_call=1, integrator="pt_nee",
+                           reuse_primary_hit=False)
+    bvh = renderer.build_bvh_for_scene(scene, cfg.leaf_size)
+    cam = cpt.make_camera(pos=(0.0, 2.0, 3.4), width=size, height=size,
+                          focal_length=2.0, device=dev)
+    K, C = bvh.cl_tri.shape
+    P = renderer.resolve_tile_size(cfg, scene.num_tris)
+    kern = packets.route(K, C, cfg.two_level_cull, cfg.super_factor)
+    print(f"train: scene tris={scene.num_tris} clusters={K} C={C} P={P} "
+          f"route={kern} {size}x{size} spp=1 pt_nee "
+          f"bounces={cfg.num_bounces} reuse_primary_hit=False")
+    if kern != "resident":
+        raise AssertionError(f"train took the {kern} route")
+    _, k1_wrap, _ = kernels["k1"]
+    with torch.no_grad():
+        target = rg.render_image_diff(scene, cam, cfg, prng_key(9, dev), 1,
+                                      bvh=bvh)
+    key = prng_key(1234, dev)
+    rays = cfg.num_pixels * cfg.spp * (cfg.num_bounces + 1)
+
+    def step(loss_fn, log=None):
+        """One SGD step (lr 1e-4, __graft_entry__.py:95) -> (loss, grads,
+        forward s, step s)."""
+        p = rg.targets_of(scene)
+        opt = torch.optim.SGD(rg.target_leaves(p), lr=1e-4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = loss_fn(p, target)
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        if log is not None:
+            log.backward = True
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t0
+        grads = [torch.zeros_like(t) if t.grad is None else t.grad.clone()
+                 for t in rg.target_leaves(p)]
+        return loss.detach(), grads, t_fwd, t_step
+
+    out = {}
+    for label, n_edge in (("interior", 0), ("both_terms", edge_samples)):
+        lab = f"train/{label}"
+        loss_fn = rg.make_loss_fn(scene, cam, cfg, key, 1, bvh=bvh,
+                                  edge_samples=n_edge,
+                                  shadow_edge_samples=n_edge)
+        edges = (build_edge_table(scene.host_tris, device=dev) if n_edge
+                 else None)
+        step(loss_fn)  # warm-up
+        reset_counts(kernels)
+        with TraceLog() as log:
+            loss, grads, _, _ = step(loss_fn, log)
+        launches = k1_wrap.launches
+        plain_calls = sum(pl.calls for _, _, pl in kernels.values())
+        others = sum(w.launches for n, (_, w, _) in kernels.items()
+                     if n != "k1")
+        fwd, rec = log.split()
+        same_ids = len(rec) > 0 and all(
+            torch.equal(i_r, i_f) for (_, i_r), (_, i_f) in zip(rec, fwd))
+        finite = bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in grads)
+        # the sample's traces run again in the backward; the boundary
+        # terms' traces run once, outside the checkpoint
+        want = len(fwd) + len(rec)
+        print(f"{lab}: loss={float(loss):.6f} finite={finite} "
+              f"forward_trace_calls={len(fwd)} recompute_trace_calls="
+              f"{len(rec)} k1_launches={launches} (forward {len(fwd)} + "
+              f"recompute {len(rec)}"
+              + ("" if len(rec) * 2 == want else
+                 f"; the boundary terms' {len(fwd) - len(rec)} calls run "
+                 "once, outside the per-sample checkpoint")
+              + f") other_kernel_launches={others} plain_calls="
+              f"{plain_calls} recompute_ids_equal_forward={same_ids}")
+        if not finite:
+            raise AssertionError(f"{lab}: the loss or a gradient is not "
+                                 "finite")
+        if launches != want or launches <= 0 or others or plain_calls:
+            raise AssertionError(f"{lab}: K1 launched {launches} times, "
+                                 f"expected {want}; {others} other "
+                                 f"launches, {plain_calls} plain calls")
+        if not same_ids:
+            raise AssertionError(f"{lab}: the recompute's hit ids differ "
+                                 "from the forward's")
+        # the same inputs again: the gradients within 1e-5 of each array's
+        # largest |g| (the backward's atomics reorder sums)
+        _, grads2, _, _ = step(loss_fn)
+        rep = grads_close(lab, grads2, grads, TRAIN_REPEAT_FRAC, "repeat")
+        walls = [step(loss_fn)[2:] for _ in range(TRAIN_STEPS)]
+        t_step = float(np.median([w[1] for w in walls]))
+        t_fwd = float(np.median([w[0] for w in walls]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with K1Timer() as timer:
+            step(loss_fn)
+        k1_ms = timer.ms()
+        peak = torch.cuda.max_memory_allocated()
+        with torch.no_grad():
+            _, prim_s = host_ms(lambda: rg.render_image_diff(
+                scene, cam, cfg, key, 1, bvh=bvh, edge_samples=n_edge,
+                edge_table=edges, shadow_edge_samples=n_edge))
+        print(f"{lab}: step_ms={t_step * 1e3:.3f} (median of {TRAIN_STEPS} "
+              f"after a warm-up: {[round(w[1] * 1e3, 3) for w in walls]}) "
+              f"forward_in_step_ms={t_fwd * 1e3:.3f} "
+              f"backward_and_update_ms={(t_step - t_fwd) * 1e3:.3f} "
+              f"forward_nograd_ms={prim_s:.3f} grad_mrays_per_s="
+              f"{rays / t_step / 1e6:.3f} k1_launches={len(timer.pairs)} "
+              f"k1_event_ms={k1_ms:.4f} peak_mib={peak / 2**20:.1f} "
+              f"repeat_gap_over_max={rep:.3g} (limit {TRAIN_REPEAT_FRAC})")
+        out[label] = dict(launches=launches, k1_ms=k1_ms,
+                          k1_calls=len(timer.pairs), batches=fwd,
+                          grads=grads, loss_fn=loss_fn)
+
+    # ---- K1 on the step's bounce batch: its numbers for the kernels line --
+    res = train_kernel_numbers("train/bounce1", kernels, scene, bvh, cfg, P,
+                               out["interior"]["batches"][1][0])
+
+    # ---- FD on the card: d loss / d albedo.x of the most-seen material ----
+    first = out["interior"]["batches"][0][1]
+    mats = scene.tri_mat[first[first >= 0].long()]
+    m = int(torch.bincount(mats).argmax())
+    g = float(out["interior"]["grads"][3][m])  # albedo.x (leaves_of)
+    loss_fn = out["interior"]["loss_fn"]
+    p0 = rg.targets_of(scene)
+    eps = 1e-3
+
+    def f(delta):
+        ax = p0.albedo.x.detach().clone()
+        ax[m] += delta
+        with torch.no_grad():
+            return float(loss_fn(p0._replace(
+                albedo=p0.albedo._replace(x=ax)), target))
+
+    fd = (f(eps) - f(-eps)) / (2 * eps)
+    err = abs(fd - g)
+    ok = err <= 2e-2 * max(abs(fd), abs(g), 1e-5) + 1e-5
+    print(f"train/fd: material={m} (primary hits "
+          f"{int((mats == m).sum())} of {int(first.numel())}) "
+          f"d_loss_d_albedo_x ad={g:.6g} fd={fd:.6g} eps={eps} "
+          f"rel_err={err / max(abs(fd), 1e-30):.3g} (rule: 2e-2 "
+          "relative + 1e-5, tests/test_diff.py:57)")
+    if not ok:
+        raise AssertionError("train/fd: the gradient disagrees with finite "
+                             "differences")
+
+    # ---- the card against the CPU at 16^2, both terms ---------------------
+    def small(device):
+        sc = procedural.to_scene(procedural.cornell_box(with_boxes=False),
+                                 device)
+        c = cpt.RenderConfig(width=parity_size, height=parity_size, spp=2,
+                             samples_per_call=2, integrator="pt_nee")
+        cm = cpt.make_camera(width=parity_size, height=parity_size,
+                             device=device)
+        bv = renderer.build_bvh_for_scene(sc, c.leaf_size)
+        with torch.no_grad():
+            tg = rg.render_image_diff(sc, cm, c, prng_key(99, device), 1,
+                                      bvh=bv)
+        return rg.render_and_grad(sc, cm, c, prng_key(0, device), 2, tg,
+                                  bvh=bv, edge_samples=256,
+                                  shadow_edge_samples=256)
+
+    reset_counts(kernels)
+    loss_d, g_d = small(dev)
+    if dev != "cpu" and (kernels["k1"][1].launches <= 0 or sum(
+            pl.calls for _, _, pl in kernels.values())):
+        raise AssertionError("train/parity: the card's run did not go "
+                             "through K1 alone")
+    loss_c, g_c = small("cpu")
+    rel = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
+    mat = max(float(((a.cpu() - b).abs() / b.abs().clamp(min=1e-30)).max())
+              if b.numel() else 0.0
+              for a, b in zip([*g_d.albedo, *g_d.emission],
+                              [*g_c.albedo, *g_c.emission]))
+    geo = grads_close("train/parity", [*g_d.verts, *g_d.sph_center,
+                                       g_d.sph_radius],
+                      [*g_c.verts, *g_c.sph_center, g_c.sph_radius],
+                      1e-3, "vertex gradient")
+    print(f"train/parity: {parity_size}x{parity_size} cornell_box(open) "
+          f"pt_nee spp=2 edge_samples=256 shadow_edge_samples=256 card vs "
+          f"cpu: loss_rel={rel:.3g} (limit 1e-5) material_grad_rel="
+          f"{mat:.3g} (limit 1e-4) vertex_gap_over_max={geo:.3g} "
+          "(limit 1e-3)")
+    if rel > 1e-5 or mat > 1e-4:
+        raise AssertionError("train/parity: the card's loss or material "
+                             "gradients differ from the CPU's")
+
+    # ---- BDPT: render_and_grad at 128^2, 1 spp ----------------------------
+    bcfg = dataclasses.replace(cfg, width=bdpt_size, height=bdpt_size,
+                               integrator="bdpt")
+    bcam = cpt.make_camera(pos=(0.0, 2.0, 3.4), width=bdpt_size,
+                           height=bdpt_size, focal_length=2.0, device=dev)
+    with torch.no_grad():
+        btarget = rg.render_image_diff(scene, bcam, bcfg, prng_key(9, dev),
+                                       1, bvh=bvh)
+    reset_counts(kernels)
+    bloss, bg = rg.render_and_grad(scene, bcam, bcfg, key, 1, btarget,
+                                   bvh=bvh)
+    bfinite = bool(torch.isfinite(bloss)) and all(
+        bool(torch.isfinite(t).all()) for t in rg.target_leaves(bg))
+    blaunch = kernels["k1"][1].launches
+    print(f"train/bdpt: {bdpt_size}x{bdpt_size} spp=1 loss={float(bloss):.6f}"
+          f" finite={bfinite} k1_launches={blaunch}")
+    if not bfinite or (dev != "cpu" and blaunch <= 0):
+        raise AssertionError("train/bdpt: not finite, or K1 did not launch")
+
+    # the kernels line: K1's launches per interior step, its time on the
+    # step's bounce batch beside that batch's plain version and bound, and
+    # its CUDA-event ms summed over each step
+    return res, dict(
+        k1_ms_per_step=out["interior"]["k1_ms"],
+        launches_both_terms=out["both_terms"]["launches"],
+        k1_ms_per_step_both_terms=out["both_terms"]["k1_ms"]), \
+        out["interior"]["launches"]
 
 
 def main():
@@ -1028,6 +1411,15 @@ def main():
     entry = kernel_entry("dense_resident/bdpt", "dense_resident.cu",
                          resident_src, launches, conn)
     entry.update(vis_ms)
+    entries.append(entry)
+    del scene, bvh, prep, trace_fn, window, batches
+    torch.cuda.empty_cache()
+
+    # ---- 12. train: the differentiable pass, K1 in forward and recompute --
+    res, extra, launches = train_phase(dev, kernels)
+    entry = kernel_entry("dense_resident/train", "dense_resident.cu",
+                         resident_src, launches, res)
+    entry.update(extra)
     entries.append(entry)
 
     print(smi)

@@ -14,6 +14,8 @@ import numpy as np
 import torch
 
 from .accel.bvh import Accel, FlatBVH
+from .diff.edge_sampling import EdgeTable
+from .diff.render_grad import GradTargets
 from .models.scene import Scene
 from .ops.vecmath import Vec3
 from .render.camera import Camera
@@ -89,3 +91,19 @@ def accum_from_jax(d: dict, device) -> AccumState:
     compensation and the sample count."""
     return AccumState(img=_vec3(d["img"], device),
                       comp=_vec3(d["comp"], device), n=int(d["n"]))
+
+
+def targets_from_jax(d: dict, device) -> GradTargets:
+    """JAX ``GradTargets`` (parameters or their gradients) -> the port's,
+    plain tensors (``targets_of`` makes leaves that require grad)."""
+    return GradTargets(verts=_vec3(d["verts"], device),
+                       albedo=_vec3(d["albedo"], device),
+                       emission=_vec3(d["emission"], device),
+                       sph_center=_vec3(d["sph_center"], device),
+                       sph_radius=_t(d["sph_radius"], device, np.float32))
+
+
+def edge_table_from_jax(d: dict, device) -> EdgeTable:
+    """JAX ``EdgeTable`` -> the port's (int32 ev0, ev1, fa, fb)."""
+    return EdgeTable(*(_t(d[f], device, np.int32)
+                       for f in EdgeTable._fields))

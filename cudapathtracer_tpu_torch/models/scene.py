@@ -18,7 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.vecmath import Vec3
+from ..ops.vecmath import Vec3, cross, gather, length, normalized, take_clip
 
 
 class Scene(NamedTuple):
@@ -115,3 +115,19 @@ def make_scene(verts, tri_indices, tri_mats, albedo, emission, *, device,
         host_verts=verts,
         host_tris=tri_indices,
     )
+
+
+def recompute_derived(scene: Scene) -> Scene:
+    """Face normals and the total light area from the current vertices, as
+    tensors that carry the vertices' gradients, so d(image)/d(verts) flows
+    through shading and the light pdf too (the gradient pass,
+    diff/render_grad.py). The host copies stay as they are: the edge table
+    and the accel build read them."""
+    v0 = gather(scene.verts, scene.tri_v0)
+    v1 = gather(scene.verts, scene.tri_v1)
+    v2 = gather(scene.verts, scene.tri_v2)
+    n = normalized(cross(v1 - v0, v2 - v0))
+    lv0, lv1, lv2 = (gather(scene.verts, take_clip(c, scene.lights))
+                     for c in (scene.tri_v0, scene.tri_v1, scene.tri_v2))
+    areas = length(cross(lv1 - lv0, lv2 - lv0)) * 0.5
+    return scene._replace(tri_norm=n, total_light_area=torch.sum(areas))

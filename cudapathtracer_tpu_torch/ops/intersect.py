@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.constants import EPS_PARALLEL, MAX_FLOAT
-from .vecmath import Vec3, cross, dot, fma, fma3, sqrt
+from .vecmath import Vec3, cross, div, dot, fma, fma3, sqrt
 
 
 def ray_aabb(o: Vec3, inv_d: Vec3, lo: Vec3, hi: Vec3, t_best):
@@ -106,6 +106,45 @@ def ray_triangle_any(o: Vec3, d: Vec3, v0: Vec3, e1: Vec3, e2: Vec3,
     """Triangle test by intersector, 'bw' or 'mt' (``triangle_test``)."""
     test, rows = triangle_test(e1, e2, intersector)
     return test(o, d, v0, *rows)
+
+
+def ray_triangle_verts(o: Vec3, d: Vec3, v0: Vec3, v1: Vec3, v2: Vec3):
+    """``ray_triangle`` on raw vertices, the edges formed from them (the
+    differentiable re-evaluation's form)."""
+    return ray_triangle(o, d, v0, v1 - v0, v2 - v0)
+
+
+def ray_triangle_t_unchecked(o: Vec3, d: Vec3, v0: Vec3, v1: Vec3,
+                             v2: Vec3):
+    """Moller-Trumbore t with no hit test, for a triangle the discrete trace
+    already found: differentiable in the ray and every vertex (the gradient
+    pass's detach trick, diff/render_grad.py). |a| below 1e-12 is clamped
+    to 1e-12, so a miss lane's t stays finite."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    q = cross(d, e2)
+    a = dot(e1, q)
+    safe_a = torch.where(torch.abs(a) < 1e-12, 1e-12, a)
+    s = (o - v0) * div(1.0, safe_a)
+    r = cross(s, e1)
+    # XLA contracts this dot with the y term fused first, unlike ``dot``
+    return fma(e2.z, r.z, fma(e2.y, r.y, e2.x * r.x))
+
+
+def ray_sphere_t_unchecked(o: Vec3, d: Vec3, center: Vec3, radius):
+    """The nearest positive sphere t with no hit test, for a sphere the
+    trace already found: differentiable in the ray, the center and the
+    radius. The discriminant is clamped to 1e-12 and |d|^2 to 1e-20."""
+    oc = o - center
+    a = dot(d, d)
+    b = 2.0 * dot(oc, d)
+    c = fma(-radius, radius, dot(oc, oc))
+    disc = torch.clamp(fma(b, b, -(4.0 * a * c)), min=1e-12)
+    sq = sqrt(disc)
+    inv2a = div(0.5, torch.clamp(a, min=1e-20))
+    t0 = (-b - sq) * inv2a
+    t1 = (-b + sq) * inv2a
+    return torch.where(t0 > 0.0, t0, t1)
 
 
 def ray_sphere(o: Vec3, d: Vec3, center: Vec3, radius):

@@ -42,7 +42,7 @@ from .kernels.dense_resident import (
 )
 from .kernels.dense_super import dense_intersect_super
 from .traversal import Hit, TraceData, apply_t_cap, trace, tri_blocks
-from .vecmath import Vec3
+from .vecmath import Vec3, stop_gradient
 
 # the JAX package's auto cull stays flat up to this many clusters
 # (packets.py:550-556) and picks a two-level cull past it
@@ -320,6 +320,7 @@ def build_shortlists(o: Vec3, d: Vec3, mask, pd: PacketData,
     return Shortlists(ids, counts, entries, rays, U)
 
 
+@torch.no_grad()
 def trace_packets(o: Vec3, d: Vec3, pd: PacketData,
                   fine_td: TraceData | None = None, mask=None,
                   tile_size: int = 128, max_clusters: int = 32,
@@ -346,7 +347,13 @@ def trace_packets(o: Vec3, d: Vec3, pd: PacketData,
     reports t = -1.0 with an occluder's id (not necessarily the closest);
     every other ray reports the capped closest hit. BDPT's decision
     |t - len| <= eps is then the closest-hit query's for every ray
-    (packets.py:286-298)."""
+    (packets.py:286-298).
+
+    The search is detached (packets.py:321-323): rays, caps and scene data
+    are detached and nothing is recorded, so the kernels' wrappers never
+    see a tensor that requires grad."""
+    o, d, pd, fine_td, resident_pack, t_cap = stop_gradient(
+        (o, d, pd, fine_td, resident_pack, t_cap))
     R = o.x.shape[0]
     dev = o.x.device
     if vis_band > 0.0 and t_cap is None:

@@ -73,6 +73,47 @@ def uniform(keys, n: int):
     return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
+def split(key, n: int):
+    """``jax.random.split(key, n)`` of one (2,) key -> (n, 2): key i is
+    threefry2x32 of the counters (0, i) (``_threefry_split_foldlike``,
+    jax/_src/prng.py, under ``jax_threefry_partitionable``)."""
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(i), i)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def _bits32(key, n: int):
+    """``jax.random.bits(key, (n,), uint32)``: the xor of the two threefry
+    words of the counters (0, i)."""
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(i), i)
+    return y0 ^ y1
+
+
+def randint(key, n: int, lo: int, hi: int):
+    """``jax.random.randint(key, (n,), lo, hi)`` (int32) of one (2,) key.
+
+    The recipe of ``_randint`` in jax/_src/random.py (JAX 0.9.0): split the
+    key in two, draw 32 bits from each (higher, lower) and combine them
+    modulo the span, in uint32 arithmetic that wraps:
+    ((higher % span) * mult + lower % span) % span with
+    mult = ((2^16 % span)^2) % span, whose square wraps too (so mult is 0
+    for spans past 2^16); a span below 1 is 1."""
+    if not (-2 ** 31 <= lo < 2 ** 31 and -2 ** 31 <= hi < 2 ** 31):
+        raise ValueError(f"randint bounds [{lo}, {hi}) outside int32")
+    k1, k2 = split(key, 2)
+    higher, lower = _bits32(k1, n), _bits32(k2, n)
+    span = hi - lo if hi > lo else 1
+    mult = ((2 ** 16 % span) ** 2 & _MASK) % span
+    off = (((higher % span) * mult & _MASK) + lower % span) & _MASK
+    return (lo + off % span).to(torch.int32)
+
+
+def uniform_1(key, n: int):
+    """``jax.random.uniform(key, (n,))`` of one (2,) key -> (n,)."""
+    return uniform(key[None], n)[0]
+
+
 def sample_key(base_key, sample_index):
     """Key for one progressive sample pass."""
     return fold_in(base_key, sample_index)

@@ -12,8 +12,11 @@ Hits keep the closest triangle with ``0 < t`` (kernel.cu:127); exact-t ties
 go to the lower triangle id, so every engine gives the same hit. Every
 engine tests triangles with the caller's intersector, Baldwin-Weber ('bw')
 or Moller-Trumbore ('mt'); ``trace`` also counts its walk (``TraceStats``).
-Hits are plain tensors and carry no autograd history
-(ops/packets.py:321-323).
+Every engine is detached, as the JAX package's are (traversal.py:181-187,
+295-297, 388-397): it detaches its rays and scene inputs and runs under
+``torch.no_grad()``, so its hits carry no autograd history and build no
+graph, whatever the caller's tensors require. The gradient pass
+(diff/render_grad.py) evaluates t again from the found ids.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 
 from ..utils.constants import MAX_FLOAT
 from .intersect import ray_aabb, ray_sphere, triangle_test
-from .vecmath import Vec3, gather, take_clip
+from .vecmath import Vec3, gather, stop_gradient, take_clip
 
 _TRI_SENTINEL = 0x7FFFFFFF
 
@@ -119,6 +122,7 @@ class TraceStats(NamedTuple):
     ray_visits: torch.Tensor  # (R,) i32, nodes visited per ray
 
 
+@torch.no_grad()
 def trace(o: Vec3, d: Vec3, td: TraceData, mask=None,
           with_stats: bool = False, intersector: str = "bw"):
     """Closest hit of R rays by the skip-link walk, testing triangles by
@@ -128,6 +132,7 @@ def trace(o: Vec3, d: Vec3, td: TraceData, mask=None,
     steps over all R lanes, each adding L visits per lane to a triangle's
     slot (a leaf's triangles for a lane that tests one, slot T otherwise),
     so the lanes this loop leaves out add theirs to slot T."""
+    o, d, td = stop_gradient((o, d, td))
     R = o.x.shape[0]
     dev = o.x.device
     t_out = torch.full((R,), MAX_FLOAT, dtype=torch.float32, device=dev)
@@ -192,6 +197,7 @@ def trace(o: Vec3, d: Vec3, td: TraceData, mask=None,
                            ray_visits=ray_visits)
 
 
+@torch.no_grad()
 def trace_bruteforce(o: Vec3, d: Vec3, scene, mask=None,
                      chunk: int = 512, intersector: str = "bw") -> Hit:
     """All-pairs closest hit, every ray against every triangle in chunks of
@@ -199,9 +205,10 @@ def trace_bruteforce(o: Vec3, d: Vec3, scene, mask=None,
     oracle the other engines are held to."""
     T = scene.num_tris
     dev = o.x.device
-    v0 = gather(scene.verts, scene.tri_v0)
-    v1 = gather(scene.verts, scene.tri_v1)
-    v2 = gather(scene.verts, scene.tri_v2)
+    o, d, verts = stop_gradient((o, d, scene.verts))
+    v0 = gather(verts, scene.tri_v0)
+    v1 = gather(verts, scene.tri_v1)
+    v2 = gather(verts, scene.tri_v2)
     test, attrs = triangle_test(v1 - v0, v2 - v0, intersector)
     o_b, d_b = _col(o), _col(d)
     R = o.x.shape[0]
@@ -232,6 +239,7 @@ def apply_t_cap(hit: Hit, t_cap) -> Hit:
                t=torch.where(beyond, MAX_FLOAT, hit.t))
 
 
+@torch.no_grad()
 def trace_spheres(o: Vec3, d: Vec3, scene, t_best, id_best,
                   mask=None) -> Hit:
     """Fold the analytic spheres into a hit: sphere s reports id T + s and
@@ -239,9 +247,10 @@ def trace_spheres(o: Vec3, d: Vec3, scene, t_best, id_best,
     S = scene.num_spheres
     if S == 0:
         return Hit(tri=id_best, t=t_best)
-    c = Vec3(scene.sph_center.x[None, :], scene.sph_center.y[None, :],
-             scene.sph_center.z[None, :])
-    ts = ray_sphere(_col(o), _col(d), c, scene.sph_radius[None, :])
+    o, d, t_best, center, radius = stop_gradient(
+        (o, d, t_best, scene.sph_center, scene.sph_radius))
+    c = Vec3(center.x[None, :], center.y[None, :], center.z[None, :])
+    ts = ray_sphere(_col(o), _col(d), c, radius[None, :])
     t_new, j = torch.min(ts, dim=1)
     upd = t_new < t_best
     if mask is not None:

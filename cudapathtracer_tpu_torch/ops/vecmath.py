@@ -69,15 +69,11 @@ class Vec3(NamedTuple):
         return Vec3(fn(self.x), fn(self.y), fn(self.z))
 
 
-def fma(a, b, c):
-    """Fused multiply-add a*b + c of float32 tensors, rounded once.
-
-    The product is exact in float64; the sum is formed in float64 rounded to
-    odd (a TwoSum error term moves an inexact even result to its odd
-    neighbour), which makes the final rounding to float32 the correct one.
-    A Python number ``b`` is taken as float32, as JAX takes it."""
-    if not torch.is_tensor(b):
-        b = torch.tensor(b, dtype=torch.float32, device=a.device)
+def _fma_rounded(a, b, c):
+    """a*b + c of float32 tensors, rounded once (see ``fma``)."""
+    if a.dtype == torch.float64:
+        # float64 operands (``gradcheck``): no float32 rounding to emulate
+        return a * b + c
     p = a.double() * b.double()
     c64 = c.double()
     s = p + c64
@@ -87,6 +83,56 @@ def fma(a, b, c):
            & torch.isfinite(s))
     toward = torch.where(err > 0, torch.inf, -torch.inf).double()
     return torch.where(fix, torch.nextafter(s, toward), s).float()
+
+
+def _cotangent(g, other, shape):
+    """``g * other`` (``g`` alone for ``other`` None) summed down to an
+    operand's broadcast ``shape``. A float32 sum is formed in float64 and
+    rounded once, as autograd through the float64 emulation formed it."""
+    prod = g if other is None else g * other
+    if prod.shape == shape:
+        return prod
+    if g.dtype != torch.float32:
+        return prod.sum_to_size(shape)
+    wide = g.double() if other is None else g.double() * other.double()
+    return wide.sum_to_size(shape).float()
+
+
+class _FMA(torch.autograd.Function):
+    """``_fma_rounded`` with the product rule as its backward: (g*b, g*a, g)
+    in float32, each reduced to its operand's shape. It saves only a and b,
+    where autograd through the emulation saves its float64 intermediates
+    and builds about ten backward nodes."""
+
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.save_for_backward(a, b)
+        ctx.c_shape = c.shape
+        return _fma_rounded(a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        need_a, need_b, need_c = ctx.needs_input_grad
+        return (_cotangent(g, b, a.shape) if need_a else None,
+                _cotangent(g, a, b.shape) if need_b else None,
+                _cotangent(g, None, ctx.c_shape) if need_c else None)
+
+
+def fma(a, b, c):
+    """Fused multiply-add a*b + c of float32 tensors, rounded once.
+
+    The product is exact in float64; the sum is formed in float64 rounded to
+    odd (a TwoSum error term moves an inexact even result to its odd
+    neighbour), which makes the final rounding to float32 the correct one.
+    A Python number ``b`` is taken as float32, as JAX takes it. Under
+    autograd it is one ``torch.autograd.Function`` (``_FMA``)."""
+    if not torch.is_tensor(b):
+        b = torch.tensor(b, dtype=a.dtype, device=a.device)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad
+                                    or c.requires_grad):
+        return _FMA.apply(a, b, c)
+    return _fma_rounded(a, b, c)
 
 
 def fma3(a: Vec3, b, c: Vec3) -> Vec3:
@@ -201,3 +247,15 @@ def gather(table: Vec3, idx) -> Vec3:
     """Rows of an SoA table at ``idx``, clamped like ``mode='clip'``."""
     i = idx.clamp(0, table.x.shape[0] - 1).long()
     return Vec3(table.x[i], table.y[i], table.z[i])
+
+
+def stop_gradient(x):
+    """``jax.lax.stop_gradient`` over a tensor or a (named) tuple of them,
+    nested: every tensor detached, every other leaf (ints, numpy arrays,
+    None) as it is."""
+    if torch.is_tensor(x):
+        return x.detach()
+    if isinstance(x, tuple):
+        parts = [stop_gradient(v) for v in x]
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    return x

@@ -49,8 +49,11 @@ class AccumState(NamedTuple):
     n: int           # samples accumulated so far
 
 
-def init_accum(cfg: RenderConfig, *, device) -> AccumState:
-    r = cfg.num_pixels
+def init_accum(cfg: RenderConfig, *, device,
+               num_pixels: int | None = None) -> AccumState:
+    """An empty state of the whole image, or of a tile of ``num_pixels``
+    (``render_batch(idx=)``)."""
+    r = cfg.num_pixels if num_pixels is None else int(num_pixels)
     return AccumState(img=Vec3.zeros((r,), device),
                       comp=Vec3.zeros((r,), device), n=0)
 
@@ -120,7 +123,14 @@ def make_trace_fn(scene, cfg: RenderConfig, bvh: Accel | None,
     ``cfg.vis_dropout``. 'bvh' (the fine-BVH walk) and 'brute' (which
     needs no ``bvh``) answer the closest hit, capped by ``t_cap``, and
     ignore ``vis_band``: the closest hit decides a visibility query
-    alike."""
+    alike. The search data (the fine ``TraceData`` and, without ``prep``,
+    the packet prep) is built here from the scene's current vertices,
+    detached: every engine is (ops/traversal.py)."""
+    with torch.no_grad():
+        return _make_trace_fn(scene, cfg, bvh, prep)
+
+
+def _make_trace_fn(scene, cfg, bvh, prep):
     if cfg.traversal == "brute":
         def base(o, d, mask, t_cap=None, vis_band=0.0):
             h = traversal.trace_bruteforce(o, d, scene, mask=mask,
@@ -183,14 +193,22 @@ def _radiance(o, d, scene, trace_fn, keys, cfg: RenderConfig,
 
 def render_batch(scene, bvh: Accel | None, cam: Camera, cfg: RenderConfig,
                  base_key, state: AccumState, num_samples: int,
-                 prep: PacketPrep | None = None) -> AccumState:
-    """Render ``num_samples`` progressive samples of every pixel into
-    ``state``; sample i draws its randoms from the global index
-    ``state.n + i``."""
+                 prep: PacketPrep | None = None, idx=None) -> AccumState:
+    """Render ``num_samples`` progressive samples into ``state``; sample i
+    draws its randoms from the global index ``state.n + i``.
+
+    ``idx``: the Morton pixel indices this call covers (default: the whole
+    image), with ``state`` of as many pixels. The randoms key on the pixel
+    index, not on its position, so tiles rendered apart equal the whole
+    image's pixels (JAX renderer.py:255-273)."""
     check_supported(cfg)
     dev = cam.pos.x.device
     trace_fn = make_trace_fn(scene, cfg, bvh, prep=prep)
-    idx = torch.arange(cfg.num_pixels, dtype=torch.int64, device=dev)
+    if idx is None:
+        idx = torch.arange(cfg.num_pixels, dtype=torch.int64, device=dev)
+    if state.img.x.shape != idx.shape:
+        raise ValueError(f"state holds {tuple(state.img.x.shape)} pixels, "
+                         f"idx {tuple(idx.shape)}")
     if cfg.reuse_primary_hit and float(cam.radius) != 0.0:
         raise ValueError("cfg.reuse_primary_hit requires a pinhole camera "
                          "(radius=0)")

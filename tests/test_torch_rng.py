@@ -80,3 +80,55 @@ def test_pixel_keys_bit_exact():
     got = trng.pixel_keys(trng.sample_key(trng.prng_key(1234, "cpu"), 3),
                           torch.from_numpy(idx))
     np.testing.assert_array_equal(_np(want), got.numpy())
+
+
+def _edge_count(name, **kw):
+    from cudapathtracer_tpu_torch.diff.edge_sampling import build_edge_table
+    from cudapathtracer_tpu_torch.models import procedural
+
+    tris = getattr(procedural, name)(**kw)["tris"]
+    return build_edge_table(tris, device="cpu").num_edges
+
+
+@pytest.mark.parametrize("seed", [0, 9, 2**32 - 1])
+@pytest.mark.parametrize("n", [2, 4])
+def test_split_bit_exact(seed, n):
+    """The boundary terms split their fold_in keys in 2 and 4."""
+    base = trng.prng_key(seed, "cpu")
+    for word in (0xED6E, 0x5AD0):
+        want = jax.random.split(jax.random.fold_in(
+            jax.random.PRNGKey(seed), word), n)
+        got = trng.split(trng.fold_in(base, word), n)
+        np.testing.assert_array_equal(_np(want), got.numpy())
+
+
+# spans: 1, 7, the int32 limit, and the edge counts of the boundary
+# terms' scenes (the diff tests' Cornell box, the bench's colonnade)
+@pytest.mark.parametrize("span", [
+    1, 7, 2**31 - 1, ("cornell_box", {"with_boxes": False}),
+    ("cornell_box", {}), ("colonnade", {"subdiv": 3})],
+    ids=["1", "7", "int32max", "E_cornell_open", "E_cornell", "E_colonnade3"])
+@pytest.mark.parametrize("seed", [0, 1234])
+def test_randint_bit_exact(span, seed):
+    if isinstance(span, tuple):
+        span = _edge_count(span[0], **span[1])
+    k = jax.random.fold_in(jax.random.PRNGKey(seed), 0xED6E)
+    tk = trng.fold_in(trng.prng_key(seed, "cpu"), 0xED6E)
+    want = np.asarray(jax.random.randint(k, (4096,), 0, span))
+    got = trng.randint(tk, 4096, 0, span)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(want, got.numpy())
+    # and the uniforms the same split's second key draws
+    _, ku = jax.random.split(k)
+    np.testing.assert_array_equal(
+        np.asarray(jax.random.uniform(ku, (1000,))).view(np.uint32),
+        trng.uniform_1(trng.split(tk, 2)[1], 1000).numpy().view(np.uint32))
+
+
+def test_randint_empty_and_offset_spans():
+    k = jax.random.PRNGKey(3)
+    tk = trng.prng_key(3, "cpu")
+    for lo, hi in ((5, 5), (9, 2), (-9, 17), (-2**31, 2**31 - 1)):
+        np.testing.assert_array_equal(
+            np.asarray(jax.random.randint(k, (512,), lo, hi)),
+            trng.randint(tk, 512, lo, hi).numpy())

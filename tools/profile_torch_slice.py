@@ -17,9 +17,23 @@ bdpt path instead. Phases, each printing lines that start with its name:
    device time, and the host ops whose kernels took the most device time
    (the whole table goes to ``--out`` when given).
 
+``--train`` profiles the bench's train step instead (bench.py:189-225;
+chip_smoke.py's phase 12): colonnade subdiv 3 at 256x256, pt_nee, 1 spp,
+primary hit not reused, one SGD step of the L2 loss against a key-9 target
+through ``render_grad.make_loss_fn``, with ``--edge-samples`` samples of
+each boundary term (default 0). It prints the step's wall (median of 3),
+then ``torch.profiler`` over the forward (the loss) and over the backward
+(the per-sample recompute and the backward proper, and the update) apart:
+device ms, device events, the idle share (1 - device ms / wall ms), K1's
+device ms and launches, the ops that launched the most device time, and
+the device ms inside the float64 FMA emulation (forward and backward) and
+the threefry RNG (``record_function`` ranges set around them here).
+
 Run on a CUDA machine from the repo root:
     python3 tools/profile_torch_slice.py [--size 1024] [--repeats 3]
         [--integrator pt_nee|bdpt] [--out table.txt]
+    python3 tools/profile_torch_slice.py --train [--size 256]
+        [--edge-samples 16384] [--out table.txt]
 """
 
 from __future__ import annotations
@@ -56,20 +70,34 @@ def device_us(e):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--size", type=int, default=1024)
+    ap.add_argument("--size", type=int, default=None,
+                    help="image width and height (default 1024; --train "
+                    "256)")
     ap.add_argument("--subdiv", type=int, default=3)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--integrator", default="pt_nee",
                     choices=("pt_nee", "bdpt"))
     ap.add_argument("--out", default=None,
                     help="file for the whole profiler table")
+    ap.add_argument("--train", action="store_true",
+                    help="profile the bench's train step instead")
+    ap.add_argument("--edge-samples", type=int, default=0,
+                    help="--train: samples of each boundary term")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_slice: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda:0")
+    import subprocess
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
     print(f"device: {torch.cuda.get_device_name(0)}; torch "
-          f"{torch.__version__}")
+          f"{torch.__version__}; {smi}")
+    if args.train:
+        return train(args, dev)
+    args.size = args.size or 1024
 
     n = args.size
     scene = procedural.to_scene(procedural.colonnade(subdiv=args.subdiv), dev)
@@ -174,6 +202,121 @@ def main():
     if args.out:
         with open(args.out, "w") as f:
             f.write(ka.table(sort_by="self_device_time_total", row_limit=-1))
+    return 0
+
+
+def annotate(module, name, label):
+    """Run ``module.name`` inside ``record_function(label)`` from now on."""
+    from torch.profiler import record_function
+
+    fn = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        with record_function(label):
+            return fn(*a, **kw)
+
+    setattr(module, name, wrapped)
+
+
+def profile_window(label, fn, k1_before, out=None):
+    """torch.profiler over ``fn()``: one line of totals, the top ops, and
+    the device ms inside the annotated ranges."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = sync_s(fn)
+    ka = prof.key_averages()
+    dev_rows = [e for e in ka if e.device_type == DeviceType.CUDA
+                and not e.is_user_annotation]
+    total_us = sum(device_us(e) for e in dev_rows)
+    k1_rows = [e for e in dev_rows if "dense_resident" in e.key]
+    k1_us = sum(device_us(e) for e in k1_rows)
+    wall_ms = wall * 1e3
+    print(f"{label}: wall_ms={wall_ms:.3f} device_ms={total_us / 1e3:.3f} "
+          f"device_events={sum(e.count for e in dev_rows)} idle_share="
+          f"{1 - total_us / 1e3 / wall_ms:.4f} k1_device_ms={k1_us / 1e3:.3f}"
+          f" k1_device_launches={sum(e.count for e in k1_rows)} "
+          f"k1_wrapper_launches="
+          f"{k1.dense_intersect_resident.launches - k1_before}")
+    for e in ka:
+        # the host-side range: its device time is that of the kernels
+        # launched inside it (the device-side row spans idle gaps too)
+        if (e.key in ("fma_emulation", "fma_backward", "threefry")
+                and e.device_type == DeviceType.CPU):
+            print(f"{label}_range: {e.key} calls={e.count} device_ms="
+                  f"{e.device_time_total / 1e3:.3f} share_of_device="
+                  f"{e.device_time_total / max(total_us, 1):.4f}")
+    ops = sorted((e for e in ka if e.device_type == DeviceType.CPU
+                  and not e.is_user_annotation), key=device_us,
+                 reverse=True)
+    for e in ops[:15]:
+        print(f"{label}_op: {e.key[:60]!r} calls={e.count} "
+              f"self_device_ms={device_us(e) / 1e3:.3f}")
+    if out:
+        with open(out, "a") as f:
+            f.write(f"==== {label}\n")
+            f.write(ka.table(sort_by="self_device_time_total",
+                             row_limit=-1))
+
+
+def train(args, dev):
+    """--train: the bench's train step, timed and profiled."""
+    from cudapathtracer_tpu_torch.diff import render_grad as rg
+    from cudapathtracer_tpu_torch.ops import rng, vecmath
+
+    n = args.size or 256
+    scene = procedural.to_scene(procedural.colonnade(subdiv=args.subdiv), dev)
+    cfg = cpt.RenderConfig(width=n, height=n, spp=1, samples_per_call=1,
+                           integrator="pt_nee", reuse_primary_hit=False)
+    bvh = renderer.build_bvh_for_scene(scene, cfg.leaf_size)
+    cam = cpt.make_camera(pos=(0.0, 2.0, 3.4), width=n, height=n,
+                          focal_length=2.0, device=dev)
+    with torch.no_grad():
+        target = rg.render_image_diff(scene, cam, cfg, prng_key(9, dev), 1,
+                                      bvh=bvh)
+    es = args.edge_samples
+    loss_fn = rg.make_loss_fn(scene, cam, cfg, prng_key(1234, dev), 1,
+                              bvh=bvh, edge_samples=es,
+                              shadow_edge_samples=es)
+    print(f"train: tris={scene.num_tris} {n}x{n} spp=1 pt_nee "
+          f"edge_samples={es} shadow_edge_samples={es}")
+
+    def params():
+        p = rg.targets_of(scene)
+        return p, torch.optim.SGD(rg.target_leaves(p), lr=1e-4)
+
+    def step():
+        p, opt = params()
+        loss_fn(p, target).backward()
+        opt.step()
+
+    step()
+    walls = [sync_s(step)[1] * 1e3 for _ in range(3)]
+    rays = cfg.num_pixels * (cfg.num_bounces + 1)
+    med = sorted(walls)[1]
+    print(f"train: step_ms={[round(w, 3) for w in walls]} median_ms="
+          f"{med:.3f} grad_mrays_per_s={rays / med / 1e3:.3f}")
+
+    annotate(vecmath, "_fma_rounded", "fma_emulation")
+    annotate(vecmath, "_cotangent", "fma_backward")
+    annotate(rng, "threefry2x32", "threefry")
+    step()
+    p, opt = params()
+    holder = {}
+    before = k1.dense_intersect_resident.launches
+    profile_window("train_forward",
+                   lambda: holder.setdefault("loss", loss_fn(p, target)),
+                   before, args.out)
+    before = k1.dense_intersect_resident.launches
+
+    def backward():
+        holder["loss"].backward()
+        opt.step()
+
+    profile_window("train_backward", backward, before, args.out)
     return 0
 
 
