@@ -86,7 +86,29 @@ the JAX bench's sizes, its other two engines and its differentiable pass
    finite difference of the loss in the most-seen material's albedo.x
    (tests/test_diff.py:57's rule); render_and_grad on the card against
    the CPU at TRAIN_PARITY_SIZE^2 with both terms (the CPU parity tests'
-   tolerances); and a BDPT render_and_grad at TRAIN_BDPT_SIZE^2.
+   tolerances); and a BDPT render_and_grad at TRAIN_BDPT_SIZE^2;
+13. cli (K1): host I/O and the CLI. ``cli.main`` in this process renders
+   the reference's live config (``render --scene cornell-sphere
+   --integrator bdpt --size 512 --spp 99``, kernel.cu:28-35) three times:
+   whole to a PNG, killed at CLI_KILLED_SPP with a checkpoint every
+   CLI_CHECKPOINT_EVERY samples, and resumed to 99 from that checkpoint.
+   The two PNGs must be equal byte for byte, the checkpoint's n must read
+   99, the PNG must equal finalize_image flipped in x, and each run must
+   launch K1 alone; K1 is held against its plain version on the live
+   config's primary batch; the runs' walls, the CLI's Mrays/s and the
+   checkpoint's save and load ms are printed. Then one CLI run in a fresh
+   process (CLI_FRESH_SPP spp; it must not import jax); the reference's
+   own CornellBox-Original, written from its embedded OBJ text and
+   rendered through ``--obj`` (BDPT, 512^2, CLI_ORIGINAL_SPP spp: finite,
+   its maximum above 150, the left wall red and the right green); colonnade
+   subdiv OBJ_SUBDIV (328,084 triangles) written by ``write_obj`` and
+   loaded through the native parser onto the card (write, parse, upload and
+   load_obj seconds; its arrays equal to_scene's up to write_obj's stable
+   sort by material), rendered at OBJ_SIZE^2 pt_nee OBJ_SPP spp through K1
+   alone within the golden rule of the procedural scene's render, K1
+   against its plain version on sampled bounce tiles; and ``heatmap
+   --scene cornell --size 512 --falsecolor`` (36 CSV lines ending in a
+   comma, a falsecolor image not all zero).
 
 Each render path runs with every kernel's launch count and every plain
 version's call count set to 0 just before its timed windows and read just
@@ -108,18 +130,24 @@ numbers, dense_resident_mt/mt, dense_mt and dense_super_mt for the
 Moller-Trumbore instances, dense_resident/bdpt with the connection
 batch's numbers and the visibility instances' times, and dense_resident/train
 with K1's launches per interior train step, its time on the step's bounce
-batch and its ms summed over each step), the last line the device record.
+batch and its ms summed over each step, and dense_resident/cli with K1's
+launches in the live config's whole run and per sample there and on the OBJ
+path, and its time on the OBJ path's bounce batch), the last line the device
+record.
 
 Run: python3 chip_smoke.py
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -168,26 +196,42 @@ TRAIN_STEPS = 3
 TRAIN_REPEAT_FRAC = 1e-5
 TRAIN_PARITY_SIZE = 16
 TRAIN_BDPT_SIZE = 128
+# the CLI (phase 13): the reference's live config (kernel.cu:28-35), killed
+# at CLI_KILLED_SPP and resumed; an OBJ at the scale users load
+CLI_SIZE = 512
+CLI_SPP = 99
+CLI_KILLED_SPP = 48
+CLI_CHECKPOINT_EVERY = 16
+CLI_FRESH_SPP = 8
+CLI_ORIGINAL_SPP = 16
+OBJ_SUBDIV = 5
+OBJ_SIZE = 1024
+OBJ_SPP = 4
 # one H100 SXM (its data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 
 
-def check_golden(img, path, tol=2, max_frac=0.005):
-    """tests/test_goldens.py:_check's rule on an (H, W, 3) u8 image before
-    the writer's x flip: under 0.5% of channels may differ by more than 2."""
+def image_rule(label, got, want, tol=2, max_frac=0.005):
+    """tests/test_goldens.py:_check's rule between two (H, W, 3) u8 images:
+    under 0.5% of channels may differ by more than 2. -> that share."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shapes {got.shape}, {want.shape}")
+    frac = float((np.abs(got.astype(np.int32) - want.astype(np.int32))
+                  > tol).mean())
+    if frac >= max_frac:
+        raise AssertionError(f"{label}: {frac:.4%} of channels differ by "
+                             f"more than {tol}")
+    return frac
+
+
+def check_golden(img, path):
+    """``image_rule`` on an image before the writer's x flip against the
+    golden PPM at ``path``."""
     from cudapathtracer_tpu_torch.utils.ppm import read_ppm
 
-    gold = read_ppm(path).astype(np.int32)
-    img = img[:, ::-1].astype(np.int32)
-    if img.shape != gold.shape:
-        raise AssertionError(f"golden shape {gold.shape}, got {img.shape}")
-    frac = float((np.abs(img - gold) > tol).mean())
-    if frac >= max_frac:
-        raise AssertionError(f"{frac:.4%} of channels differ by more than "
-                             f"{tol} from {os.path.basename(path)}")
-    return frac
+    return image_rule(os.path.basename(path), img[:, ::-1], read_ppm(path))
 
 
 def cuda_ms(fn, reps):
@@ -804,6 +848,246 @@ def train_phase(dev, kernels, size=TRAIN_SIZE,
         out["interior"]["launches"]
 
 
+def run_cli(argv):
+    """``cli.main(argv)`` in this process, its standard error captured and
+    echoed. -> (the captured text, wall seconds to a synchronize)."""
+    from cudapathtracer_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(buf):
+        cli.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    sys.stderr.write(text)
+    return text, wall
+
+
+def cli_mrays(text):
+    """The CLI's closing ``<x> Mrays/s`` line (kernel.cu:757)."""
+    for line in text.splitlines():
+        if line.endswith(" Mrays/s"):
+            return float(line.split()[0])
+    raise AssertionError("the CLI printed no Mrays/s line")
+
+
+def cli_phase(dev, kernels, check_batch, base_key, size=CLI_SIZE,
+              spp=CLI_SPP, killed=CLI_KILLED_SPP, fresh_spp=CLI_FRESH_SPP,
+              original_spp=CLI_ORIGINAL_SPP, obj_subdiv=OBJ_SUBDIV,
+              obj_size=OBJ_SIZE, obj_spp=OBJ_SPP):
+    """Phase 13: host I/O and the CLI on the card. The live config through
+    ``cli.main`` (uninterrupted, killed at ``killed`` samples with
+    checkpoints, resumed), one run from a fresh process, the reference's own
+    CornellBox-Original from its OBJ, colonnade subdiv ``obj_subdiv``
+    written as OBJ and loaded through the native parser, and ``heatmap``.
+    -> (K1's numbers on the OBJ path's bounce batch, extra keys, K1's
+    launches in the uninterrupted live run)."""
+    import cudapathtracer_tpu_torch as cpt
+    from cudapathtracer_tpu_torch.accel import native
+    from cudapathtracer_tpu_torch.models import cornell_original, procedural
+    from cudapathtracer_tpu_torch.models.loader import obj_arrays
+    from cudapathtracer_tpu_torch.render import renderer
+    from cudapathtracer_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                           save_checkpoint)
+    from cudapathtracer_tpu_torch.utils.png import read_png
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    work = tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build"))
+    wd = work.name
+    live = ["render", "--scene", "cornell-sphere", "--integrator", "bdpt",
+            "--size", str(size), "--device", str(dev)]
+    cfg = cpt.RenderConfig(width=size, height=size, spp=spp)
+    ck = os.path.join(wd, "ck.npz")
+    pngs = [os.path.join(wd, f"{n}.png") for n in ("whole", "resumed")]
+
+    # ---- 1. the live config: whole, killed, resumed ------------------------
+    runs = {}
+    for label, argv in (
+            ("whole", live + ["--spp", str(spp), "-o", pngs[0]]),
+            ("killed", live + ["--spp", str(killed), "--checkpoint", ck,
+                               "--checkpoint-every",
+                               str(CLI_CHECKPOINT_EVERY), "-o",
+                               os.path.join(wd, "killed.png")]),
+            ("resumed", live + ["--spp", str(spp), "--checkpoint", ck, "-o",
+                                pngs[1]])):
+        reset_counts(kernels)
+        text, wall = run_cli(argv)
+        launches, _ = path_counts(f"cli/live/{label}", kernels, "k1")
+        n = load_checkpoint(ck, cfg, device=dev)[0].n \
+            if label != "whole" else spp
+        runs[label] = dict(wall=wall, mrays=cli_mrays(text),
+                           k1=launches["k1"], n=n,
+                           resumed="resumed from" in text)
+        print(f"cli/live/{label}: {size}x{size} bdpt cornell-sphere "
+              f"spp_after={n} wall_s={wall:.3f} cli_mrays_per_s="
+              f"{runs[label]['mrays']:.3f} k1_launches={launches['k1']} "
+              f"resumed_from_checkpoint={runs[label]['resumed']}")
+    same = open(pngs[0], "rb").read() == open(pngs[1], "rb").read()
+    st, seed = load_checkpoint(ck, cfg, device=dev)
+    img = read_png(pngs[1])
+    flipped = np.array_equal(img, cpt.finalize_image(st, cfg)[:, ::-1])
+    _, save_ms = host_ms(lambda: save_checkpoint(
+        os.path.join(wd, "timed.npz"), st, seed, cfg))
+    _, load_ms = host_ms(lambda: load_checkpoint(
+        os.path.join(wd, "timed.npz"), cfg, device=dev))
+    print(f"cli/live: killed_at={runs['killed']['n']} resumed_n={st.n} "
+          f"pngs_byte_identical={same} png_equals_finalize_flipped={flipped} "
+          f"checkpoint_save_ms={save_ms:.3f} checkpoint_load_ms="
+          f"{load_ms:.3f} launches_per_sample="
+          f"{runs['whole']['k1'] / spp:.2f}")
+    if not (same and flipped and st.n == spp and runs["resumed"]["resumed"]
+            and runs["killed"]["n"] == killed
+            and not runs["killed"]["resumed"]):
+        raise AssertionError("cli/live: the resumed render differs from the "
+                             "whole one, or the checkpoint is wrong")
+
+    # K1 against its plain version on the live config's primary batch
+    scene = procedural.to_scene(procedural.cornell_with_sphere_mesh(), dev)
+    cam = cpt.make_camera(width=size, height=size, device=dev)
+    bvh = renderer.build_bvh_for_scene(scene, cfg.leaf_size)
+    prep = renderer.make_packet_prep(scene, bvh, cfg.intersector)
+    one = dataclasses.replace(cfg, spp=1, reuse_primary_hit=True)
+    trace_fn = renderer.make_trace_fn(scene, one, bvh, prep=prep)
+    batch = record_batches(scene, trace_fn, cam, one, base_key)["primary"]
+    live_res = check_batch("cli/live/primary", "k1", batch, scene, prep, one,
+                           renderer.resolve_tile_size(one, scene.num_tris),
+                           None, full_plain=True)
+    del scene, bvh, prep, trace_fn, batch
+
+    # ---- 2. one run from a fresh process -----------------------------------
+    argv = live + ["--spp", str(fresh_spp), "-o",
+                   os.path.join(wd, "fresh.png")]
+    code = ("import sys; from cudapathtracer_tpu_torch.cli import main; "
+            f"main({argv!r}); assert 'jax' not in sys.modules")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    fresh_s = time.perf_counter() - t0
+    print(f"cli/fresh: exit={proc.returncode} spp={fresh_spp} "
+          f"process_wall_s={fresh_s:.3f} cli_mrays_per_s="
+          f"{cli_mrays(proc.stderr) if proc.returncode == 0 else 'none'}")
+    if proc.returncode != 0:
+        raise AssertionError(f"cli/fresh: {proc.stderr[-3000:]}")
+
+    # ---- 3. the reference's own scene, CornellBox-Original -----------------
+    obj = cornell_original.write_cornell_original(wd)
+    ock = os.path.join(wd, "original.npz")
+    reset_counts(kernels)
+    _, wall = run_cli(["render", "--obj", obj, "--integrator", "bdpt",
+                       "--size", str(size), "--spp", str(original_spp),
+                       "--device", str(dev), "--checkpoint", ock, "-o",
+                       os.path.join(wd, "original.png")])
+    launches, _ = path_counts("cli/original", kernels, "k1")
+    ost = load_checkpoint(ock, device=dev)[0]
+    finite = all(bool(torch.isfinite(c).all()) for c in ost.img)
+    oimg = read_png(os.path.join(wd, "original.png")).astype(np.float64)
+    h, w = oimg.shape[:2]
+    rows = slice(int(0.3 * h), int(0.7 * h))
+    left = oimg[rows, int(0.05 * w):int(0.2 * w)].mean(axis=(0, 1))
+    right = oimg[rows, int(0.8 * w):int(0.95 * w)].mean(axis=(0, 1))
+    print(f"cli/original: CornellBox-Original bdpt {size}x{size} "
+          f"spp={original_spp} wall_s={wall:.3f} finite={finite} "
+          f"image_max={oimg.max():.0f} left_wall_rgb="
+          f"{[round(float(v), 1) for v in left]} right_wall_rgb="
+          f"{[round(float(v), 1) for v in right]} k1_launches="
+          f"{launches['k1']}")
+    if not (finite and oimg.max() > 150 and left[0] > max(left[1:])
+            and right[1] > max(right[0], right[2])):
+        raise AssertionError("cli/original: not finite, too dark, or the "
+                             "walls' colours are wrong")
+
+    # ---- 4. an OBJ at the scale users load ---------------------------------
+    desc = procedural.colonnade(subdiv=obj_subdiv)
+    po, pm = os.path.join(wd, "colonnade.obj"), os.path.join(wd, "c.mtl")
+    t0 = time.perf_counter()
+    procedural.write_obj(po, pm, desc)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arrays = obj_arrays(po)
+    parse_s = time.perf_counter() - t0
+    loaded, upload_ms = host_ms(lambda: cpt.make_scene(*arrays, device=dev))
+    _, load_obj_ms = host_ms(lambda: cpt.load_obj(po, device=dev))
+    ref = procedural.to_scene(desc, dev)
+    order = np.argsort(desc["tri_mats"], kind="stable")
+    geo = np.array_equal(loaded.host_verts[loaded.host_tris],
+                         desc["verts"][desc["tris"][order]])
+    mats = np.array_equal(loaded.tri_mat.cpu().numpy(),
+                          desc["tri_mats"][order])
+    o_t = torch.from_numpy(order).to(dev)
+    norms = all(torch.equal(a, b[o_t]) for a, b in zip(loaded.tri_norm,
+                                                        ref.tri_norm))
+    lights = np.array_equal(np.sort(order[loaded.lights.cpu().numpy()]),
+                            ref.lights.cpu().numpy())
+    area = abs(float(loaded.total_light_area) - float(ref.total_light_area))
+    area_rel = area / float(ref.total_light_area)
+    print(f"cli/obj: colonnade subdiv {obj_subdiv} tris={loaded.num_tris} "
+          f"write_obj_s={write_s:.3f} native_parse_s={parse_s:.3f} "
+          f"upload_s={upload_ms / 1e3:.3f} "
+          f"load_obj_s={load_obj_ms / 1e3:.3f} "
+          f"obj_bytes={os.path.getsize(po)} equal_up_to_material_sort: "
+          f"geometry={geo} materials={mats} normals={norms} lights={lights} "
+          f"light_area_rel={area_rel:.3g}")
+    if not (geo and mats and norms and lights and area_rel < 1e-6):
+        raise AssertionError("cli/obj: the loaded scene differs from "
+                             "to_scene's")
+
+    ocfg = cpt.RenderConfig(width=obj_size, height=obj_size, spp=obj_spp,
+                            samples_per_call=obj_spp, integrator="pt_nee")
+    ocam = cpt.make_camera(pos=(0.0, 2.0, 3.4), width=obj_size,
+                           height=obj_size, focal_length=2.0, device=dev)
+    obvh = renderer.build_bvh_for_scene(loaded, ocfg.leaf_size)
+    reset_counts(kernels)
+    ost, owall = host_ms(lambda: cpt.render(loaded, ocam, ocfg, seed=1234,
+                                            bvh=obvh, device=dev))
+    olaunch, _ = path_counts("cli/obj", kernels, "k1")
+    rst = cpt.render(ref, ocam, ocfg, seed=1234, device=dev)
+    print(f"cli/obj: pt_nee {obj_size}x{obj_size} spp={obj_spp} "
+          f"render_wall_ms={owall:.1f} (accel built before) k1_launches="
+          f"{olaunch['k1']} launches_per_sample={olaunch['k1'] / obj_spp:.2f}")
+    frac = image_rule("cli/obj", cpt.finalize_image(ost, ocfg),
+                      cpt.finalize_image(rst, ocfg))
+    print(f"cli/obj: loaded vs procedural channels_off_by_more_than_2="
+          f"{frac:.4%} (limit 0.5%)")
+    one = dataclasses.replace(ocfg, spp=1, samples_per_call=1,
+                              reuse_primary_hit=True)
+    oprep = renderer.make_packet_prep(loaded, obvh, one.intersector)
+    otrace = renderer.make_trace_fn(loaded, one, obvh, prep=oprep)
+    bounce = record_batches(loaded, otrace, ocam, one, base_key)["bounce1"]
+    res = check_batch("cli/obj/bounce1", "k1", bounce, loaded, oprep, one,
+                      renderer.resolve_tile_size(one, loaded.num_tris), None,
+                      full_plain=False)
+    res["max_abs"] = max(res["max_abs"], live_res["max_abs"])
+    del loaded, ref, obvh, oprep, otrace, bounce, ost, rst
+
+    # ---- 5. heatmap ---------------------------------------------------------
+    csv, fc = os.path.join(wd, "out.csv"), os.path.join(wd, "fc.png")
+    run_cli(["heatmap", "--scene", "cornell", "--size", str(size),
+             "--device", str(dev), "-o", csv, "--falsecolor", fc])
+    lines = open(csv).read().strip().splitlines()
+    fimg = read_png(fc)
+    print(f"cli/heatmap: csv_lines={len(lines)} all_end_in_comma="
+          f"{all(x.endswith(',') for x in lines)} falsecolor_max="
+          f"{int(fimg.max())}")
+    if len(lines) != 36 or not all(x.endswith(",") for x in lines) \
+            or fimg.max() == 0:
+        raise AssertionError("cli/heatmap: the CSV or the falsecolor image "
+                             "is wrong")
+    work.cleanup()
+    return res, dict(
+        launches_per_sample_live=runs["whole"]["k1"] / spp,
+        launches_per_sample_obj=olaunch["k1"] / obj_spp,
+        live_wall_s=runs["whole"]["wall"],
+        live_cli_mrays_per_s=runs["whole"]["mrays"],
+        resumed_wall_s=runs["resumed"]["wall"],
+        checkpoint_save_ms=save_ms, checkpoint_load_ms=load_ms,
+        obj_parse_s=parse_s, obj_upload_s=upload_ms / 1e3,
+        live_primary_ms=live_res["ms"], live_primary_plain_ms=live_res[
+            "plain_ms"], live_primary_bound_ms=live_res["bound"][0]), \
+        runs["whole"]["k1"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -853,10 +1137,11 @@ def main():
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels) + 1) as pool:
+    with ThreadPoolExecutor(len(kernels) + 2) as pool:
         futs = {n: pool.submit(timed_build, b)
                 for n, (b, _, _) in kernels.items()}
         futs["bvh_builder"] = pool.submit(timed_build, native.load)
+        futs["obj_parser"] = pool.submit(timed_build, native.load_obj_parser)
         build_s = {n: f.result() for n, f in futs.items()}
     print("build: " + " ".join(f"{n}_s={s:.2f}" for n, s in build_s.items())
           + f" wall_s={time.perf_counter() - t0:.2f}")
@@ -1418,6 +1703,14 @@ def main():
     # ---- 12. train: the differentiable pass, K1 in forward and recompute --
     res, extra, launches = train_phase(dev, kernels)
     entry = kernel_entry("dense_resident/train", "dense_resident.cu",
+                         resident_src, launches, res)
+    entry.update(extra)
+    entries.append(entry)
+
+    # ---- 13. cli: host I/O, checkpoints and the CLI ------------------------
+    torch.cuda.empty_cache()
+    res, extra, launches = cli_phase(dev, kernels, check_batch, base_key)
+    entry = kernel_entry("dense_resident/cli", "dense_resident.cu",
                          resident_src, launches, res)
     entry.update(extra)
     entries.append(entry)

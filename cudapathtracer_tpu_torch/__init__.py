@@ -9,15 +9,21 @@ differentiates the render w.r.t. the scene's parameters (diff/: the detached
 hit search, t evaluated again with gradients, the edge-sampled boundary
 terms). It imports torch and numpy, never jax.
 
-Every constructor takes an explicit ``device``; the packet engine runs the
-CUDA kernel on CUDA tensors and its plain PyTorch version on CPU tensors.
-Importing the package builds nothing: the native BVH builder and the CUDA
-kernel are compiled into ``build/`` at their first use.
+Every constructor takes a ``device``, the card ("cuda") unless the caller
+names another; without a card they raise. The packet engine runs the CUDA
+kernel on CUDA tensors and its plain PyTorch version on CPU tensors.
+Scenes come from the procedural generators or from OBJ/MTL files through
+the native parser (``load_obj``, ``load_objs``); renders resume from npz
+checkpoints that either package can read (utils/checkpoint.py), and
+``python -m cudapathtracer_tpu_torch.cli`` is the command-line interface.
+Importing the package builds nothing: the native BVH build, the OBJ parser
+and the CUDA kernels are compiled into ``build/`` at their first use.
 """
 
 __version__ = "0.1.0"
 
-from .models.scene import Scene, make_scene                # noqa: F401
+from .models.loader import load_obj, load_objs            # noqa: F401
+from .models.scene import Scene, make_scene, merge_scenes  # noqa: F401
 from .render.camera import Camera, make_camera             # noqa: F401
 from .render.renderer import (                             # noqa: F401
     AccumState,

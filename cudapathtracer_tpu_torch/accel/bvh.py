@@ -33,6 +33,10 @@ class FlatBVH(NamedTuple):
     def num_nodes(self):
         return self.node_skip.shape[0]
 
+    @property
+    def num_leaves(self):
+        return self.leaf_tri.shape[0]
+
 
 class Accel(NamedTuple):
     """The fine per-ray BVH plus the coarse cluster level: (K,) cluster

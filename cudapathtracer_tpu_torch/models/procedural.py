@@ -14,9 +14,10 @@ paths). We therefore generate equivalent scenes procedurally:
   capitals, clerestory light strips; triangle count is parameterized, used
   for throughput benchmarking (BASELINE.md targets sponza 1024^2).
 
-Generators return host-side dicts; ``to_scene`` assembles a Scene on an
-explicit device via models/scene.py (which replicates the reference loader
-semantics).
+Generators return host-side dicts; ``to_scene`` assembles a Scene on a
+device (the card unless the caller names another) via models/scene.py
+(which replicates the reference loader semantics), and ``write_obj`` writes
+one as OBJ+MTL for the loader.
 
 The numpy generators are copies of ``cudapathtracer_tpu/models/procedural.py``
 (the port cannot import that package: importing it imports JAX), and the
@@ -219,7 +220,8 @@ def cornell_with_sphere_mesh(subdiv: int = 3):
 
 
 def cornell_with_analytic_sphere(radius: float = 0.26,
-                                 center=(0.35, 0.45, 0.3), *, device):
+                                 center=(0.35, 0.45, 0.3), *,
+                                 device="cuda"):
     """Cornell box + one ANALYTIC sphere primitive (the reference's
     dormant sphere.h capability, revived): returns a Scene directly,
     since analytic spheres live outside the OBJ/triangle pipeline."""
@@ -318,8 +320,42 @@ def colonnade(n_cols: int = 8, n_rows: int = 2, subdiv: int = 3, seed: int = 0):
     )
 
 
-def to_scene(desc, device) -> Scene:
+def to_scene(desc, device="cuda") -> Scene:
     return make_scene(
         desc["verts"], desc["tris"], desc["tri_mats"], desc["albedo"],
         desc["emission"], device=device,
     )
+
+
+# ---------------------------------------------------------------------------
+# OBJ/MTL writer (round-trip fixture for the loaders)
+# ---------------------------------------------------------------------------
+
+def write_obj(path_obj, path_mtl, desc):
+    """Write a scene dict as OBJ+MTL, grouping faces by material (one
+    usemtl block per material, the layout the reference's tinyobj pipeline
+    consumes; JAX ``procedural.py:write_obj``). The faces are written in a
+    stable sort by material."""
+    import os
+
+    mat_names = desc["mat_names"]
+    with open(path_mtl, "w") as f:
+        for i, name in enumerate(mat_names):
+            f.write(f"newmtl {name}\n")
+            a = desc["albedo"][i]
+            e = desc["emission"][i]
+            f.write(f"Kd {a[0]} {a[1]} {a[2]}\n")
+            f.write(f"Ke {e[0]} {e[1]} {e[2]}\n\n")
+    with open(path_obj, "w") as f:
+        f.write(f"mtllib {os.path.basename(path_mtl)}\n")
+        for v in desc["verts"]:
+            f.write(f"v {v[0]} {v[1]} {v[2]}\n")
+        order = np.argsort(desc["tri_mats"], kind="stable")
+        cur = -1
+        for ti in order:
+            m = int(desc["tri_mats"][ti])
+            if m != cur:
+                f.write(f"usemtl {mat_names[m]}\n")
+                cur = m
+            a, b, c = (int(x) + 1 for x in desc["tris"][ti])
+            f.write(f"f {a} {b} {c}\n")

@@ -29,7 +29,8 @@ class Camera(NamedTuple):
 
 
 def make_camera(pos=(0.0, 1.0, 3.0), dist_from_film=1.0, focal_length=3.0,
-                radius=0.0, width=512, height=512, *, device) -> Camera:
+                radius=0.0, width=512, height=512, *,
+                device="cuda") -> Camera:
     """Defaults = the reference's hard-coded camera (kernel.cu:643-648)."""
     def f(v):
         return torch.tensor(v, dtype=torch.float32, device=device)

@@ -8,9 +8,10 @@ accumulator is float32 with Kahan-compensated running-mean updates in the
 JAX package's operation order (the reference accumulates in double,
 color.h:6).
 
-Everything lives on one device, named explicitly: ``to_scene``,
-``make_camera``, ``init_accum`` and ``render`` each take ``device``. The
-packet engine follows the tensors: it runs the CUDA kernel on CUDA tensors
+Everything lives on one device: ``to_scene``, ``make_camera``,
+``init_accum`` and ``render`` each take ``device``, the card ("cuda")
+unless the caller names another; without a card they raise. The packet
+engine follows the tensors: it runs the CUDA kernel on CUDA tensors
 and the kernel's plain PyTorch version on CPU tensors. ``cfg.traversal``
 picks the engine, as in the JAX package: the packet engine ('packets'),
 the fine-BVH walk ('bvh') or brute force ('brute'); each tests triangles
@@ -49,7 +50,7 @@ class AccumState(NamedTuple):
     n: int           # samples accumulated so far
 
 
-def init_accum(cfg: RenderConfig, *, device,
+def init_accum(cfg: RenderConfig, *, device="cuda",
                num_pixels: int | None = None) -> AccumState:
     """An empty state of the whole image, or of a tile of ``num_pixels``
     (``render_batch(idx=)``)."""
@@ -232,13 +233,15 @@ def render_batch(scene, bvh: Accel | None, cam: Camera, cfg: RenderConfig,
 
 
 def render(scene, cam: Camera, cfg: RenderConfig, seed: int = 1234,
-           bvh: Accel | None = None, state: AccumState | None = None, *,
-           device) -> AccumState:
+           bvh: Accel | None = None, state: AccumState | None = None,
+           progress_cb=None, *, device="cuda") -> AccumState:
     """Full progressive render on ``device``: build the accel structure if
     needed (host, like the reference's buildBVH, kernel.cu:601), then render
-    ``cfg.spp`` samples in ``cfg.samples_per_call`` chunks. A pinhole camera
-    without jitter turns on ``reuse_primary_hit``. Brute force
-    (``cfg.traversal == 'brute'``) builds no accel structure."""
+    ``cfg.spp`` samples in ``cfg.samples_per_call`` chunks, calling
+    ``progress_cb(done, state)`` after each chunk (the CLI's progress lines
+    and checkpoints). A pinhole camera without jitter turns on
+    ``reuse_primary_hit``. Brute force (``cfg.traversal == 'brute'``) builds
+    no accel structure."""
     check_supported(cfg)
     device = torch.device(device)
     for name, t in (("scene", scene.tri_v0), ("camera", cam.radius)):
@@ -261,6 +264,8 @@ def render(scene, cam: Camera, cfg: RenderConfig, seed: int = 1234,
         state = render_batch(scene, bvh, cam, cfg, base_key, state, todo,
                              prep=prep)
         done += todo
+        if progress_cb is not None:
+            progress_cb(done, state)
     return state
 
 
@@ -345,9 +350,14 @@ def finalize_image(state: AccumState, cfg: RenderConfig):
 
 
 def write_render(path, state: AccumState, cfg: RenderConfig):
-    """Tonemapped image to a P3 PPM (x-flipped like the reference writer)."""
-    if not str(path).lower().endswith(".ppm"):
-        raise NotImplementedError("the port writes .ppm only")
-    from ..utils.ppm import write_ppm
+    """Tonemapped image to disk, x-flipped like the reference writer; the
+    format by extension: .png through utils/png.py, else a P3 PPM."""
+    img = finalize_image(state, cfg)
+    if str(path).lower().endswith(".png"):
+        from ..utils.png import write_png
 
-    write_ppm(path, finalize_image(state, cfg), flip_x=True)
+        write_png(path, img, flip_x=True)
+    else:
+        from ..utils.ppm import write_ppm
+
+        write_ppm(path, img, flip_x=True)
