@@ -108,7 +108,32 @@ the JAX bench's sizes, its other two engines and its differentiable pass
    alone within the golden rule of the procedural scene's render, K1
    against its plain version on sampled bounce tiles; and ``heatmap
    --scene cornell --size 512 --falsecolor`` (36 CSV lines ending in a
-   comma, a falsecolor image not all zero).
+   comma, a falsecolor image not all zero);
+14. sharded (K1): the tile-sharded render, train step, checkpoints and
+   CLI over torch.distributed (parallel/). (a) A one-rank NCCL group in
+   this process: the headline through ``render_sharded`` and
+   ``render_batch`` in turns (unsharded, sharded, sharded, unsharded),
+   bit-identical, gathered over NCCL bit for bit, K1 alone launching, both
+   Mrays/s; one BDPT 512^2 window each, bit-identical. (b) Two ranks on
+   this card over gloo (NCCL refuses two ranks on one device), spawned
+   with a time limit: the gathered headline equals (a)'s image bit for
+   bit, K1 alone launching on each rank, each rank's wall; a sharded
+   checkpoint at half the samples resumed to all of them equals the
+   uninterrupted range bit for bit, and a load at one rank raises; the
+   train step at TRAIN_SIZE^2 (interior, then both boundary terms at
+   TRAIN_EDGE_SAMPLES) through ``make_sharded_grad_fn``: the all-reduced
+   loss within rtol 1e-5 and the gradients within TRAIN_REPEAT_FRAC of
+   each array's largest |g| of the one-process step's, and the update of
+   one SGD step (at a rate that moves every parameter array by at least
+   SGD_STEP_FRAC of its largest |p|) within TRAIN_REPEAT_FRAC of lr times
+   each array's largest |g|. (c) ``cli.main(["render",
+   "--sharded", ...])`` on the live config killed at CLI_KILLED_SPP and
+   resumed: the PNG byte-identical to phase 13's unsharded PNG, K1 alone.
+   (d) The contiguous Morton split: for each world in SPLIT_WORLDS each
+   rank's range of the headline and of BDPT 512^2 rendered alone, one
+   sample: K1's lane tests (its counting instance) and the range's
+   CUDA-event ms, and worst over mean of each. Then K1 on rank 0 of 2's
+   bounce batch, as step 5 checks a batch.
 
 Each render path runs with every kernel's launch count and every plain
 version's call count set to 0 just before its timed windows and read just
@@ -132,8 +157,11 @@ batch's numbers and the visibility instances' times, and dense_resident/train
 with K1's launches per interior train step, its time on the step's bounce
 batch and its ms summed over each step, and dense_resident/cli with K1's
 launches in the live config's whole run and per sample there and on the OBJ
-path, and its time on the OBJ path's bounce batch), the last line the device
-record.
+path, and its time on the OBJ path's bounce batch, and
+dense_resident/sharded with K1's launches in the world-1 sharded windows
+and per rank per sample on two ranks, its time on a rank's bounce batch,
+both worlds' Mrays/s and the split's worst/mean figures), the last line the
+device record.
 
 Run: python3 chip_smoke.py
 """
@@ -207,6 +235,13 @@ CLI_ORIGINAL_SPP = 16
 OBJ_SUBDIV = 5
 OBJ_SIZE = 1024
 OBJ_SPP = 4
+# the sharded phase (14): the SGD check's rate, set so that every parameter
+# array moves by at least this share of its largest |p| (an update far
+# past float32's rounding of the parameters), the two gloo ranks' time
+# limit, the worlds whose contiguous split is measured
+SGD_STEP_FRAC = 0.1
+RANK_TIMEOUT_S = 600
+SPLIT_WORLDS = (2, 4, 8)
 # one H100 SXM (its data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -340,17 +375,19 @@ def sample_tiles(sl, n):
     return type(sl)(*(a[idx].contiguous() for a in sl))
 
 
-def record_batches(scene, trace_fn, cam, cfg, base_key):
+def record_batches(scene, trace_fn, cam, cfg, base_key, idx=None):
     """The batches of one sample of ``cfg.integrator`` as the renderer's
     trace closure receives them, each (o, d, mask, t_cap or None): pt_nee's
     primary and first bounce batches; BDPT's primary batch (R rays), its
-    joint subpath batch (2R) and its capped connection batch (4R)."""
+    joint subpath batch (2R) and its capped connection batch (4R). ``idx``:
+    the Morton pixels traced (default the whole image)."""
     from cudapathtracer_tpu_torch.ops.rng import pixel_keys, sample_key
     from cudapathtracer_tpu_torch.render.camera import camera_rays
     from cudapathtracer_tpu_torch.render.renderer import _radiance
 
     dev = cam.pos.x.device
-    idx = torch.arange(cfg.num_pixels, dtype=torch.int64, device=dev)
+    if idx is None:
+        idx = torch.arange(cfg.num_pixels, dtype=torch.int64, device=dev)
     calls = []
 
     def recording(o, d, mask, t_cap=None, vis_band=0.0):
@@ -883,7 +920,8 @@ def cli_phase(dev, kernels, check_batch, base_key, size=CLI_SIZE,
     CornellBox-Original from its OBJ, colonnade subdiv ``obj_subdiv``
     written as OBJ and loaded through the native parser, and ``heatmap``.
     -> (K1's numbers on the OBJ path's bounce batch, extra keys, K1's
-    launches in the uninterrupted live run)."""
+    launches in the uninterrupted live run, the uninterrupted run's PNG
+    bytes)."""
     import cudapathtracer_tpu_torch as cpt
     from cudapathtracer_tpu_torch.accel import native
     from cudapathtracer_tpu_torch.models import cornell_original, procedural
@@ -924,7 +962,8 @@ def cli_phase(dev, kernels, check_batch, base_key, size=CLI_SIZE,
               f"spp_after={n} wall_s={wall:.3f} cli_mrays_per_s="
               f"{runs[label]['mrays']:.3f} k1_launches={launches['k1']} "
               f"resumed_from_checkpoint={runs[label]['resumed']}")
-    same = open(pngs[0], "rb").read() == open(pngs[1], "rb").read()
+    live_png = open(pngs[0], "rb").read()
+    same = live_png == open(pngs[1], "rb").read()
     st, seed = load_checkpoint(ck, cfg, device=dev)
     img = read_png(pngs[1])
     flipped = np.array_equal(img, cpt.finalize_image(st, cfg)[:, ::-1])
@@ -1085,7 +1124,456 @@ def cli_phase(dev, kernels, check_batch, base_key, size=CLI_SIZE,
         obj_parse_s=parse_s, obj_upload_s=upload_ms / 1e3,
         live_primary_ms=live_res["ms"], live_primary_plain_ms=live_res[
             "plain_ms"], live_primary_bound_ms=live_res["bound"][0]), \
-        runs["whole"]["k1"]
+        runs["whole"]["k1"], live_png
+
+
+def path_setup(dev, subdiv, size, integrator, spp):
+    """The paths' colonnade scene at ``size``^2 with the bench camera, the
+    config (one batch of ``spp`` samples, the primary hit reused), its
+    accel structure and packet prep."""
+    import cudapathtracer_tpu_torch as cpt
+    from cudapathtracer_tpu_torch.models import procedural
+    from cudapathtracer_tpu_torch.render import renderer
+
+    scene = procedural.to_scene(procedural.colonnade(subdiv=subdiv), dev)
+    cfg = cpt.RenderConfig(width=size, height=size, spp=spp,
+                           integrator=integrator, samples_per_call=spp,
+                           reuse_primary_hit=True)
+    bvh = renderer.build_bvh_for_scene(scene, cfg.leaf_size)
+    cam = cpt.make_camera(pos=(0.0, 2.0, 3.4), width=size, height=size,
+                          focal_length=2.0, device=dev)
+    return scene, cfg, bvh, cam, renderer.make_packet_prep(scene, bvh)
+
+
+def state_bits(st):
+    """An AccumState's six arrays as int32 bit patterns, on the host."""
+    return [t.view(torch.int32).cpu() for t in (*st.img, *st.comp)]
+
+
+class K1Lanes:
+    """K1's counting instance in place of its timed instance on every
+    packet-engine call while entered: -> the lane tests issued
+    (``tests()``). Its launches are not a path's."""
+
+    def __enter__(self):
+        from cudapathtracer_tpu_torch.ops import packets
+        from cudapathtracer_tpu_torch.ops.kernels.dense_resident import (
+            COUNT_COLS)
+
+        self._packets, self._orig = packets, packets.dense_intersect_resident
+        self.counts = []
+
+        def counted(ids, *rest, **kw):
+            c = torch.empty((ids.shape[0], COUNT_COLS), dtype=torch.int64,
+                            device=ids.device)
+            out = self._orig(ids, *rest, counts_out=c, **kw)
+            self.counts.append(c)
+            return out
+
+        packets.dense_intersect_resident = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._packets.dense_intersect_resident = self._orig
+
+    def tests(self):
+        return sum(int(c[:, 1].sum()) for c in self.counts)
+
+
+def sharded_rank(mesh, out_dir, size, spp, train_size, edge_samples,
+                 subdiv):
+    """One of phase 14's two ranks, both on one card over gloo (a process
+    of its own, started by ``parallel.launch.start_ranks``): its range of
+    the headline (``size``^2, ``spp`` spp) timed with K1's launches
+    counted, gathered; a sharded checkpoint at spp / 2 resumed to spp,
+    gathered and held against the uninterrupted range; a load at another
+    rank count; the train step at ``train_size``^2 (interior, then both
+    boundary terms at ``edge_samples`` each) through
+    ``make_sharded_grad_fn`` and one SGD step of ``make_train_step`` at the
+    rate SGD_STEP_FRAC sets. -> the numbers the parent holds; anything
+    wrong raises, which fails the phase."""
+    import cudapathtracer_tpu_torch as cpt
+    from cudapathtracer_tpu_torch.diff import render_grad as rg
+    from cudapathtracer_tpu_torch.ops.kernels import dense as k2
+    from cudapathtracer_tpu_torch.ops.kernels import dense_resident as k1
+    from cudapathtracer_tpu_torch.ops.kernels import dense_super as k3
+    from cudapathtracer_tpu_torch.ops.rng import prng_key
+    from cudapathtracer_tpu_torch.parallel import mesh as pmesh
+    from cudapathtracer_tpu_torch.parallel import shard
+    from cudapathtracer_tpu_torch.utils import checkpoint as ck
+
+    dev, rank = mesh.device, mesh.rank
+    kernels = {"k1": (None, k1.dense_intersect_resident,
+                      k1.dense_intersect_resident_plain),
+               "k2": (None, k2.dense_intersect, k2.dense_intersect_plain),
+               "k3": (None, k3.dense_intersect_super,
+                      k3.dense_intersect_super_plain)}
+    sync = (torch.cuda.synchronize if dev.type == "cuda" else
+            (lambda: None))
+    out = {}
+    scene, cfg, bvh, cam, prep = path_setup(dev, subdiv, size, "pt_nee", spp)
+    key = prng_key(1234, dev)
+    start, stop = pmesh.tile_range(cfg.num_pixels, mesh)
+
+    def window(n, state=None):
+        if state is None:
+            state = cpt.init_accum(cfg, device=dev, num_pixels=stop - start)
+        return shard.render_sharded(scene, bvh, cam, cfg, key, state, n,
+                                    mesh, prep=prep)
+
+    window(spp)
+    sync()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    tile = window(spp)
+    sync()
+    out["window_s"] = time.perf_counter() - t0
+    launches, _ = path_counts(f"sharded/gloo/rank{rank}", kernels, "k1")
+    out["k1_launches"] = launches["k1"]
+    whole = pmesh.gather_pixels(mesh, tile)
+    if rank == 0:
+        out["image_bits"] = np.stack([b.numpy() for b in state_bits(whole)])
+
+    path = os.path.join(out_dir, "ck.npz")
+    part = window(spp // 2)
+    ck.save_checkpoint_sharded(path, part, 1234, cfg, mesh)
+    loaded, seed = ck.load_checkpoint_sharded(path, mesh, cfg)
+    resumed = window(spp - spp // 2, loaded)
+    out["resume_equal"] = seed == 1234 and resumed.n == spp and all(
+        torch.equal(a, b) for a, b in zip(state_bits(resumed),
+                                          state_bits(tile)))
+    if rank == 0:
+        try:
+            ck.load_checkpoint_sharded(path, pmesh.TileMesh(0, 1, dev), cfg)
+            out["other_world_raised"] = False
+        except FileNotFoundError:
+            out["other_world_raised"] = True
+    del scene, bvh, prep, tile, whole, part, loaded, resumed
+
+    scene, tcfg, bvh, cam, _ = path_setup(dev, subdiv, train_size, "pt_nee",
+                                          1)
+    tcfg = dataclasses.replace(tcfg, reuse_primary_hit=False)
+    with torch.no_grad():
+        target = rg.render_image_diff(scene, cam, tcfg, prng_key(9, dev), 1,
+                                      bvh=bvh)
+    idx = torch.arange(*pmesh.tile_range(tcfg.num_pixels, mesh),
+                       device=dev)
+    tile_target = type(target)(*(c[idx] for c in target))
+    for label, n_edge in (("interior", 0), ("both_terms", edge_samples)):
+        fn = shard.make_sharded_grad_fn(scene, cam, tcfg, mesh, 1, bvh=bvh,
+                                        edge_samples=n_edge,
+                                        shadow_edge_samples=n_edge)
+        fn(rg.targets_of(scene), tile_target, idx, key)  # warm-up
+        sync()
+        t0 = time.perf_counter()
+        loss, g = fn(rg.targets_of(scene), tile_target, idx, key)
+        sync()
+        out[f"{label}_step_s"] = time.perf_counter() - t0
+        out[f"{label}_loss"] = float(loss)
+        out[f"{label}_grads"] = np.concatenate(
+            [t.cpu().numpy().reshape(-1) for t in rg.target_leaves(g)])
+        if label == "interior":
+            pairs = [(float(p.detach().abs().max()), float(d.abs().max()))
+                     for p, d in zip(rg.target_leaves(rg.targets_of(scene)),
+                                     rg.target_leaves(g)) if d.numel()]
+            lr = SGD_STEP_FRAC * max(p / d for p, d in pairs if d > 0)
+    step = shard.make_train_step(scene, cam, tcfg, mesh, 1, bvh=bvh,
+                                 learning_rate=lr)
+    _, params, _ = step(rg.targets_of(scene), None, target, key)
+    out["sgd_lr"] = lr
+    out["sgd_params"] = np.concatenate(
+        [t.cpu().numpy().reshape(-1) for t in rg.target_leaves(params)])
+    return out
+
+
+def split_balance(label, dev, scene, cfg, bvh, cam, prep, base_key, worlds):
+    """Phase 14 (d): each rank's range of one sample rendered alone, for
+    each world in ``worlds``: K1's lane tests (its counting instance) and
+    the range's CUDA-event ms, and their worst over mean per world.
+    -> {world: (tests worst/mean, ms worst/mean)}."""
+    from cudapathtracer_tpu_torch import init_accum
+    from cudapathtracer_tpu_torch.parallel.mesh import TileMesh, tile_range
+    from cudapathtracer_tpu_torch.parallel.shard import render_sharded
+
+    out = {}
+    for world in worlds:
+        tests, ms = [], []
+        for r in range(world):
+            mesh = TileMesh(r, world, dev)
+            start, stop = tile_range(cfg.num_pixels, mesh)
+
+            def one():
+                return render_sharded(scene, bvh, cam, cfg, base_key,
+                                      init_accum(cfg, device=dev,
+                                                 num_pixels=stop - start),
+                                      1, mesh, prep=prep)
+
+            with K1Lanes() as lanes:
+                one()
+            tests.append(lanes.tests())
+            ms.append(cuda_ms(one, 1))
+        t_ratio = max(tests) / (sum(tests) / world)
+        m_ratio = max(ms) / (sum(ms) / world)
+        out[world] = (t_ratio, m_ratio)
+        print(f"split[{label}]: world={world} {cfg.width}x{cfg.height} "
+              f"{cfg.integrator} 1 spp lane_tests_per_rank={tests} "
+              f"ms_per_rank={[round(m, 3) for m in ms]} "
+              f"tests_worst_over_mean={t_ratio:.4f} "
+              f"ms_worst_over_mean={m_ratio:.4f}")
+    return out
+
+
+def sharded_phase(dev, kernels, check_batch, base_key, live_png,
+                  size=HEADLINE_SIZE, spp=HEADLINE_SPP, bdpt_size=BDPT_SIZE,
+                  bdpt_spp=BDPT_SPP, train_size=TRAIN_SIZE,
+                  edge_samples=TRAIN_EDGE_SAMPLES, cli_size=CLI_SIZE,
+                  cli_spp=CLI_SPP, killed=CLI_KILLED_SPP,
+                  worlds=SPLIT_WORLDS, subdiv=3):
+    """Phase 14: the tile-sharded render, train step, checkpoints and CLI
+    (parallel/). (a) world 1 over NCCL in this process, sharded windows
+    against render_batch windows in turns, then BDPT; (b) two ranks on
+    this card over gloo (``sharded_rank``) against this process's
+    one-process references; (c) ``cli.main(["render", "--sharded", ...])``
+    killed and resumed, its PNG against phase 13's ``live_png`` bytes; (d)
+    the contiguous split's balance. -> (K1's numbers on a rank's bounce
+    batch, extra keys, K1's launches in (a)'s sharded windows)."""
+    import torch.distributed as dist
+
+    import cudapathtracer_tpu_torch as cpt
+    from cudapathtracer_tpu_torch.diff import render_grad as rg
+    from cudapathtracer_tpu_torch.ops.rng import prng_key
+    from cudapathtracer_tpu_torch.parallel import mesh as pmesh
+    from cudapathtracer_tpu_torch.parallel.launch import start_ranks
+    from cudapathtracer_tpu_torch.parallel import shard
+    from cudapathtracer_tpu_torch.render import renderer
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    work = tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build"))
+    extra = {}
+
+    # ---- (a) world 1, NCCL: sharded against unsharded, in turns -----------
+    mesh = pmesh.initialize_distributed(device=dev)
+    backend = dist.get_backend()
+    print(f"sharded/world1: backend={backend} rank={mesh.rank} "
+          f"world={mesh.world} device={mesh.device}")
+    scene, cfg, bvh, cam, prep = path_setup(dev, subdiv, size, "pt_nee",
+                                            spp)
+    R = cfg.num_pixels
+
+    def unsharded(c=cfg, n=spp):
+        return cpt.render_batch(scene, bvh, cam, c, base_key,
+                                cpt.init_accum(c, device=dev), n, prep=prep)
+
+    def sharded(c=cfg, n=spp):
+        return shard.render_sharded(scene, bvh, cam, c, base_key,
+                                    cpt.init_accum(c, device=dev), n, mesh,
+                                    prep=prep)
+
+    imgs, walls, k1_by = {}, {"unsharded": [], "sharded": []}, {
+        "unsharded": 0, "sharded": 0}
+    for name in ("unsharded", "sharded"):  # warm-up
+        (unsharded if name == "unsharded" else sharded)()
+    sync()
+    for name in ("unsharded", "sharded", "sharded", "unsharded"):
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        st = (unsharded if name == "unsharded" else sharded)()
+        sync()
+        walls[name].append(time.perf_counter() - t0)
+        launches, _ = path_counts(f"sharded/world1/{name}", kernels, "k1")
+        k1_by[name] += launches["k1"]
+        bits = state_bits(st)
+        if name in imgs and not all(torch.equal(a, b)
+                                    for a, b in zip(bits, imgs[name])):
+            raise AssertionError(f"sharded/world1: two {name} windows "
+                                 "differ")
+        imgs[name] = bits
+        if name == "sharded":
+            gathered = state_bits(pmesh.gather_pixels(mesh, st))
+    same = all(torch.equal(a, b) for a, b in zip(imgs["sharded"],
+                                                 imgs["unsharded"]))
+    same_gather = all(torch.equal(a, b) for a, b in zip(gathered,
+                                                        imgs["unsharded"]))
+    rays = R * spp * (cfg.num_bounces + 1)
+    mrays = {n: rays * len(w) / sum(w) / 1e6 for n, w in walls.items()}
+    print(f"sharded/world1: headline {size}x{size} pt_nee spp={spp} "
+          f"windows_in_turns=unsharded,sharded,sharded,unsharded "
+          f"unsharded_s={[round(w, 4) for w in walls['unsharded']]} "
+          f"sharded_s={[round(w, 4) for w in walls['sharded']]} "
+          f"unsharded_mrays_per_s={mrays['unsharded']:.3f} "
+          f"sharded_mrays_per_s={mrays['sharded']:.3f} "
+          f"k1_launches_unsharded={k1_by['unsharded']} "
+          f"k1_launches_sharded={k1_by['sharded']} "
+          f"bit_identical={same} gathered_bit_identical={same_gather}")
+    if not (same and same_gather):
+        raise AssertionError("sharded/world1: the sharded image differs")
+    headline_bits = imgs["unsharded"]
+    extra.update(world1_backend=backend,
+                 world1_sharded_mrays_per_s=mrays["sharded"],
+                 world1_unsharded_mrays_per_s=mrays["unsharded"])
+    launches_a = k1_by["sharded"]
+
+    bscene, bcfg, bbvh, bcam, bprep = path_setup(dev, subdiv, bdpt_size,
+                                                 "bdpt", bdpt_spp)
+    bimgs, bwalls = {}, {}
+    for name in ("unsharded", "sharded"):
+        st0 = cpt.init_accum(bcfg, device=dev)
+        run = (lambda: cpt.render_batch(bscene, bbvh, bcam, bcfg, base_key,
+                                        st0, bdpt_spp, prep=bprep)) \
+            if name == "unsharded" else \
+            (lambda: shard.render_sharded(bscene, bbvh, bcam, bcfg,
+                                          base_key, st0, bdpt_spp, mesh,
+                                          prep=bprep))
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        st = run()
+        sync()
+        bwalls[name] = time.perf_counter() - t0
+        path_counts(f"sharded/world1/bdpt/{name}", kernels, "k1")
+        bimgs[name] = state_bits(st)
+    bsame = all(torch.equal(a, b) for a, b in zip(bimgs["sharded"],
+                                                  bimgs["unsharded"]))
+    print(f"sharded/world1: bdpt {bdpt_size}x{bdpt_size} spp={bdpt_spp} "
+          f"unsharded_s={bwalls['unsharded']:.4f} "
+          f"sharded_s={bwalls['sharded']:.4f} bit_identical={bsame}")
+    if not bsame:
+        raise AssertionError("sharded/world1: the BDPT images differ")
+    dist.destroy_process_group()
+    del bscene, bbvh, bprep, bimgs
+
+    # ---- (b) two ranks on this card over gloo -------------------------------
+    # a rank that fails, or ranks that outlast RANK_TIMEOUT_S, make
+    # wait() kill every rank and raise
+    wait = start_ranks(os.path.abspath(__file__), "sharded_rank", 2,
+                       work.name, device=str(dev), backend="gloo",
+                       args=[size, spp, train_size, edge_samples, subdiv],
+                       timeout=RANK_TIMEOUT_S)
+    # the one-process references while the ranks run
+    tscene, tcfg, tbvh, tcam, _ = path_setup(dev, subdiv, train_size,
+                                             "pt_nee", 1)
+    tcfg = dataclasses.replace(tcfg, reuse_primary_hit=False)
+    with torch.no_grad():
+        target = rg.render_image_diff(tscene, tcam, tcfg, prng_key(9, dev),
+                                      1, bvh=tbvh)
+    refs = {}
+    for label, n_edge in (("interior", 0), ("both_terms", edge_samples)):
+        loss, g = rg.render_and_grad(tscene, tcam, tcfg, base_key, 1,
+                                     target, bvh=tbvh, edge_samples=n_edge,
+                                     shadow_edge_samples=n_edge)
+        refs[label] = (float(loss), rg.target_leaves(g))
+    p0 = rg.target_leaves(rg.targets_of(tscene))
+    t0 = time.perf_counter()
+    ranks = wait()
+    ranks_s = time.perf_counter() - t0
+    gloo_same = all(torch.equal(torch.from_numpy(a), b) for a, b in zip(
+        ranks[0]["image_bits"], headline_bits))
+    print(f"sharded/gloo: 2 ranks on {dev} join_s={ranks_s:.1f} headline "
+          f"{size}x{size} spp={spp} window_s="
+          f"{[round(float(x['window_s']), 4) for x in ranks]} "
+          f"k1_launches={[int(x['k1_launches']) for x in ranks]} "
+          f"gathered_equals_world1_unsharded={gloo_same} "
+          f"checkpoint_resume_equal="
+          f"{[bool(x['resume_equal']) for x in ranks]} "
+          f"load_at_world1_raised={bool(ranks[0]['other_world_raised'])}")
+    if not (gloo_same and all(bool(x["resume_equal"]) for x in ranks)
+            and bool(ranks[0]["other_world_raised"])):
+        raise AssertionError("sharded/gloo: the gathered image, the resumed "
+                             "checkpoint or the load at world 1 is wrong")
+    sizes = [t.numel() for t in p0]
+    for label, (loss, want) in refs.items():
+        gaps = []
+        for x in ranks:
+            got = torch.from_numpy(x[f"{label}_grads"]).split(sizes)
+            rel = abs(float(x[f"{label}_loss"]) - loss) / abs(loss)
+            gap = grads_close(f"sharded/gloo/{label}", got,
+                              [w.cpu() for w in want], TRAIN_REPEAT_FRAC,
+                              "all-reduced gradient")
+            if rel > 1e-5:
+                raise AssertionError(f"sharded/gloo/{label}: loss {rel} "
+                                     "relative off the one-process loss")
+            gaps.append((rel, gap))
+        n_edge = 0 if label == "interior" else edge_samples
+        steps = [round(float(x[f"{label}_step_s"]), 4) for x in ranks]
+        print(f"sharded/gloo/{label}: {train_size}x{train_size} pt_nee "
+              f"1 spp edge_samples={n_edge} step_s={steps} "
+              f"loss={[float(x[label + '_loss']) for x in ranks]} "
+              f"one_process_loss={loss} loss_rel={[g[0] for g in gaps]} "
+              f"(limit 1e-5) grad_gap_over_max={[g[1] for g in gaps]} "
+              f"(limit {TRAIN_REPEAT_FRAC})")
+        extra[f"gloo_{label}_step_s"] = [float(x[f"{label}_step_s"])
+                                         for x in ranks]
+    # the update itself against lr times the one-process gradient, on the
+    # scale of lr times each array's largest |g|: a step left undone shows
+    # a gap of 1
+    before = [p.detach().double().cpu() for p in p0]
+    upd_gap = max(grads_close("sharded/gloo/sgd", [
+        a.double() - b for a, b in zip(torch.from_numpy(
+            x["sgd_params"]).split(sizes), before)], [
+        -float(x["sgd_lr"]) * g.double().cpu() for g in refs["interior"][1]],
+        TRAIN_REPEAT_FRAC, "update") for x in ranks)
+    print(f"sharded/gloo/sgd: lr={[float(x['sgd_lr']) for x in ranks]} "
+          f"(every array moved by >= {SGD_STEP_FRAC} of its largest |p|) "
+          f"update after one step against lr x the one-process gradient: "
+          f"gap_over_lr_max_g={upd_gap:.3g} (limit {TRAIN_REPEAT_FRAC})")
+    extra.update(gloo_window_s=[float(x["window_s"]) for x in ranks],
+                 gloo_mrays_per_s=rays / max(float(x["window_s"])
+                                             for x in ranks) / 1e6,
+                 launches_per_rank_per_sample=[
+                     int(x["k1_launches"]) / spp for x in ranks])
+    del tscene, tbvh, target, refs
+
+    # ---- (c) the CLI, --sharded, killed and resumed ------------------------
+    live = ["render", "--scene", "cornell-sphere", "--integrator", "bdpt",
+            "--size", str(cli_size), "--device", str(dev), "--sharded"]
+    ck_path = os.path.join(work.name, "cli.npz")
+    png = os.path.join(work.name, "cli.png")
+    cli = {}
+    for label, argv in (
+            ("killed", live + ["--spp", str(killed), "--checkpoint", ck_path,
+                               "--checkpoint-every",
+                               str(CLI_CHECKPOINT_EVERY), "-o",
+                               os.path.join(work.name, "killed.png")]),
+            ("resumed", live + ["--spp", str(cli_spp), "--checkpoint",
+                                ck_path, "-o", png])):
+        reset_counts(kernels)
+        text, wall = run_cli(argv)
+        launches, _ = path_counts(f"sharded/cli/{label}", kernels, "k1")
+        cli[label] = (wall, cli_mrays(text), launches["k1"],
+                      "mesh: 1 devices" in text)
+        print(f"sharded/cli/{label}: wall_s={wall:.3f} cli_mrays_per_s="
+              f"{cli[label][1]:.3f} k1_launches={launches['k1']} "
+              f"mesh_line={cli[label][3]}")
+    cli_same = open(png, "rb").read() == live_png
+    print(f"sharded/cli: resumed png byte-identical to phase 13's "
+          f"unsharded png: {cli_same}")
+    if not (cli_same and cli["killed"][3] and cli["resumed"][3]):
+        raise AssertionError("sharded/cli: the PNG differs from phase 13's")
+    extra.update(cli_resumed_wall_s=cli["resumed"][0],
+                 cli_resumed_mrays_per_s=cli["resumed"][1])
+
+    # ---- (d) the contiguous split's balance -------------------------------
+    balance = {"pt_nee": split_balance("pt_nee", dev, scene, cfg, bvh, cam,
+                                       prep, base_key, worlds)}
+    bscene, bcfg, bbvh, bcam, bprep = path_setup(dev, subdiv, bdpt_size,
+                                                 "bdpt", 1)
+    balance["bdpt"] = split_balance("bdpt", dev, bscene, bcfg, bbvh, bcam,
+                                    bprep, base_key, worlds)
+    extra["split_worst_over_mean"] = {
+        k: {str(w): {"lane_tests": t, "ms": m} for w, (t, m) in v.items()}
+        for k, v in balance.items()}
+
+    # K1 on rank 0 of 2's bounce batch of the headline
+    half = torch.arange(*pmesh.tile_range(R, pmesh.TileMesh(0, 2, dev)),
+                        device=dev)
+    one = dataclasses.replace(cfg, spp=1, samples_per_call=1)
+    trace_fn = renderer.make_trace_fn(scene, one, bvh, prep=prep)
+    batch = record_batches(scene, trace_fn, cam, one, base_key,
+                           idx=half)["bounce1"]
+    res = check_batch("sharded/rank0of2/bounce1", "k1", batch, scene, prep,
+                      one, renderer.resolve_tile_size(one, scene.num_tris),
+                      None, full_plain=False)
+    work.cleanup()
+    return res, extra, launches_a
 
 
 def main():
@@ -1709,8 +2197,18 @@ def main():
 
     # ---- 13. cli: host I/O, checkpoints and the CLI ------------------------
     torch.cuda.empty_cache()
-    res, extra, launches = cli_phase(dev, kernels, check_batch, base_key)
+    res, extra, launches, live_png = cli_phase(dev, kernels, check_batch,
+                                               base_key)
     entry = kernel_entry("dense_resident/cli", "dense_resident.cu",
+                         resident_src, launches, res)
+    entry.update(extra)
+    entries.append(entry)
+
+    # ---- 14. sharded: torch.distributed, checkpoints, the CLI's --sharded -
+    torch.cuda.empty_cache()
+    res, extra, launches = sharded_phase(dev, kernels, check_batch, base_key,
+                                         live_png)
+    entry = kernel_entry("dense_resident/sharded", "dense_resident.cu",
                          resident_src, launches, res)
     entry.update(extra)
     entries.append(entry)

@@ -16,6 +16,9 @@ Scenes come from the procedural generators or from OBJ/MTL files through
 the native parser (``load_obj``, ``load_objs``); renders resume from npz
 checkpoints that either package can read (utils/checkpoint.py), and
 ``python -m cudapathtracer_tpu_torch.cli`` is the command-line interface.
+Renders and the train step split the image's Morton pixel range over the
+ranks of a ``torch.distributed`` group, one process per card, with
+per-rank sharded checkpoints (parallel/, the CLI's ``--sharded``).
 Importing the package builds nothing: the native BVH build, the OBJ parser
 and the CUDA kernels are compiled into ``build/`` at their first use.
 """

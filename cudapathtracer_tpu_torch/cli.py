@@ -4,7 +4,9 @@ Counterpart of ``cudapathtracer_tpu/cli.py``, with its ``render`` and
 ``heatmap`` commands and their flags. It renders on the card
 (``--device cuda``, the default) and fails when there is none; it renders on
 the CPU only when asked (``--device cpu``). ``--packet-engine`` takes
-``auto`` only, and ``--sharded`` is not ported yet. Examples:
+``auto`` only. ``--sharded`` splits the image's Morton pixel range over
+the ranks of a ``torch.distributed`` group (parallel/): one process per
+card under ``torchrun``, else one rank. Examples:
 
     # the reference's live config (cornell + hero object, BDPT, 512^2)
     python -m cudapathtracer_tpu_torch.cli render --scene cornell-sphere \\
@@ -19,6 +21,11 @@ the CPU only when asked (``--device cpu``). ``--packet-engine`` takes
     # resumable progressive render with checkpoints every 16 samples
     python -m cudapathtracer_tpu_torch.cli render --scene cornell --spp 256 \\
         --checkpoint ckpt.npz --checkpoint-every 16 -o out.ppm
+
+    # multi-GPU: one rank per card, each rendering its range of pixels
+    python -m torch.distributed.run --nproc_per_node 4 \\
+        -m cudapathtracer_tpu_torch.cli render --scene colonnade \\
+        --sharded -o out.png
 
     # traversal heatmap (the reference's out.csv, kernel.cu:742-750)
     python -m cudapathtracer_tpu_torch.cli heatmap --scene cornell -o out.csv
@@ -107,23 +114,44 @@ def _device(args) -> torch.device:
 
 
 def cmd_render(args):
+    dev = _device(args)
+    if not args.sharded:
+        _render(args, dev, None)
+        return
+    import torch.distributed as dist
+
+    from .parallel.mesh import initialize_distributed
+
+    mesh = initialize_distributed(device=dev)
+    try:
+        _render(args, mesh.device, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _render(args, dev, mesh):
+    """The render command on ``dev``; with a ``mesh`` (``--sharded``) this
+    rank renders its Morton range, the state is gathered for each
+    checkpoint and the image, and only rank 0 prints and writes."""
     from . import make_camera, write_render
+    from .parallel.mesh import gather_pixels, shard_pixels, tile_range
     from .render.renderer import build_bvh_for_scene, render
     from .utils.checkpoint import load_checkpoint, save_checkpoint
     from .utils.profiling import RenderTimer
 
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded (multi-device tile sharding) is not ported yet: "
-            "ROADMAP queue 1, item 15")
-    dev = _device(args)
+    lead = mesh is None or mesh.rank == 0
+
+    def say(msg):
+        if lead:
+            print(msg, file=sys.stderr)
+
     # device banner (the reference's cudaGetDeviceProperties block,
     # kernel.cu:567-584)
     if dev.type == "cuda":
-        print(f"devices: {torch.cuda.device_count()} x "
-              f"{torch.cuda.get_device_name(dev)} (cuda)", file=sys.stderr)
+        say(f"devices: {torch.cuda.device_count()} x "
+            f"{torch.cuda.get_device_name(dev)} (cuda)")
     else:
-        print(f"devices: 1 x {dev.type} ({dev.type})", file=sys.stderr)
+        say(f"devices: 1 x {dev.type} ({dev.type})")
 
     scene = build_scene(args, dev)
     cfg = make_config(args)
@@ -131,46 +159,60 @@ def cmd_render(args):
                       height=cfg.height, dist_from_film=args.dist_from_film,
                       focal_length=args.focal_length, radius=args.aperture,
                       device=dev)
-    print(f"scene: {scene.num_tris} tris, {scene.num_lights} lights, "
-          f"light area {float(scene.total_light_area):.4f}", file=sys.stderr)
+    say(f"scene: {scene.num_tris} tris, {scene.num_lights} lights, "
+        f"light area {float(scene.total_light_area):.4f}")
 
     t0 = time.time()
     bvh = build_bvh_for_scene(scene, cfg.leaf_size,
                               cluster_size=cfg.cluster_size) \
         if cfg.traversal in ("bvh", "packets") else None
     if bvh is not None:
-        print(f"bvh: {bvh.fine.num_nodes} nodes, {bvh.fine.num_leaves} "
-              f"leaves ({time.time()-t0:.2f}s)", file=sys.stderr)
+        say(f"bvh: {bvh.fine.num_nodes} nodes, {bvh.fine.num_leaves} "
+            f"leaves ({time.time()-t0:.2f}s)")
 
     state = None
     if args.checkpoint and os.path.exists(args.checkpoint):
         state, seed = load_checkpoint(args.checkpoint, cfg, device=dev)
-        print(f"resumed from {args.checkpoint} at sample {state.n}",
-              file=sys.stderr)
+        say(f"resumed from {args.checkpoint} at sample {state.n}")
         if seed != args.seed:
             raise SystemExit(f"checkpoint seed {seed} != --seed {args.seed}")
 
     start_n = 0 if state is None else state.n
-    timer = RenderTimer(on_slow=lambda m: print(m, file=sys.stderr),
-                        device=dev).start()
+    timer = RenderTimer(on_slow=say, device=dev).start()
+
+    def whole(st):
+        return st if mesh is None else gather_pixels(mesh, st)
 
     def progress(done, st):
         timer.lap(f"(sample {done})")
         if done % 10 == 0:
-            print(f"sample {done}", file=sys.stderr)  # kernel.cu:714-715
+            say(f"sample {done}")  # kernel.cu:714-715
         if args.checkpoint and args.checkpoint_every and \
                 done % args.checkpoint_every == 0:
-            save_checkpoint(args.checkpoint, st, args.seed, cfg)
+            st = whole(st)
+            if lead:
+                save_checkpoint(args.checkpoint, st, args.seed, cfg)
 
-    state = render(scene, cam, cfg, seed=args.seed, bvh=bvh, state=state,
-                   progress_cb=progress, device=dev)
+    idx = None
+    if mesh is not None:
+        # this rank's range: render_sharded's Morton indices
+        say(f"mesh: {mesh.world} devices")
+        idx = torch.arange(*tile_range(cfg.num_pixels, mesh),
+                           dtype=torch.int64, device=dev)
+        if state is not None:
+            state = shard_pixels(mesh, state)
+    state = whole(render(scene, cam, cfg, seed=args.seed, bvh=bvh,
+                         state=state, progress_cb=progress, idx=idx,
+                         device=dev))
 
-    if args.checkpoint:
+    if args.checkpoint and lead:
         save_checkpoint(args.checkpoint, state, args.seed, cfg)
     # the reference's closing block, kernel.cu:752-757, over the samples
     # this run rendered (the JAX CLI counts a resumed render's earlier
-    # samples too)
+    # samples too) and the whole image's pixels
     rep = timer.report(cfg.num_pixels, state.n - start_n, cfg.num_bounces)
+    if not lead:
+        return
     print(f"Render took {rep['total_ms']:f} ms "
           f"({rep['total_ms']/1000:f} s)", file=sys.stderr)
     print(f"{rep['ms_per_loop']:f} ms per loop", file=sys.stderr)
@@ -268,8 +310,9 @@ def main(argv=None):
     r.add_argument("--checkpoint", default=None)
     r.add_argument("--checkpoint-every", type=int, default=0)
     r.add_argument("--sharded", action="store_true",
-                   help="shard pixel tiles over all visible devices "
-                        "(not ported yet: raises)")
+                   help="split the pixels over the ranks of a "
+                        "torch.distributed group: one per card under "
+                        "torchrun, else one")
     r.set_defaults(fn=cmd_render)
 
     h = sub.add_parser("heatmap", help="BVH visit histogram CSV (out.csv)")

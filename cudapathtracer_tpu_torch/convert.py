@@ -5,7 +5,8 @@ their field names (``to_numpy_dict`` makes them without importing JAX: it
 only reads fields and calls ``np.asarray``). A ``Vec3`` field is a dict with
 keys x, y, z. The outputs are the port's containers on ``device``: the same
 scene, accel structure and camera render the same image in both packages,
-and a render begun in JAX can be resumed in the port.
+and a render begun in JAX can be resumed in the port, whole or as one
+rank's range of a tile-sharded render.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from .diff.edge_sampling import EdgeTable
 from .diff.render_grad import GradTargets
 from .models.scene import Scene
 from .ops.vecmath import Vec3
+from .parallel.mesh import TileMesh, shard_pixels
 from .render.camera import Camera
 from .render.renderer import AccumState
 
@@ -91,6 +93,14 @@ def accum_from_jax(d: dict, device) -> AccumState:
     compensation and the sample count."""
     return AccumState(img=_vec3(d["img"], device),
                       comp=_vec3(d["comp"], device), n=int(d["n"]))
+
+
+def accum_tile_from_jax(d: dict, mesh: TileMesh, device=None) -> AccumState:
+    """The rank's Morton range of a JAX ``AccumState`` (a whole image's, or
+    a sharded one read back whole) on ``device``, default the mesh's: the
+    ``state`` a rank passes to ``parallel.shard.render_sharded``."""
+    return shard_pixels(mesh, accum_from_jax(
+        d, mesh.device if device is None else device))
 
 
 def targets_from_jax(d: dict, device) -> GradTargets:

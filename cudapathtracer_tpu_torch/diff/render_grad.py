@@ -174,18 +174,20 @@ def target_leaves(p: GradTargets):
     return [*p.verts, *p.albedo, *p.emission, *p.sph_center, p.sph_radius]
 
 
-def _from_leaves(ts) -> GradTargets:
+def from_leaves(ts) -> GradTargets:
+    """``target_leaves``' inverse: 13 tensors in that order -> a
+    GradTargets."""
     return GradTargets(Vec3(*ts[0:3]), Vec3(*ts[3:6]), Vec3(*ts[6:9]),
                        Vec3(*ts[9:12]), ts[12])
 
 
 def targets_of(scene: Scene) -> GradTargets:
     """The scene's parameters as fresh leaf tensors that require grad."""
-    return _from_leaves([t.detach().clone().requires_grad_()
-                         for t in target_leaves(GradTargets(
-                             scene.verts, scene.mat_albedo,
-                             scene.mat_emission, scene.sph_center,
-                             scene.sph_radius))])
+    return from_leaves([t.detach().clone().requires_grad_()
+                        for t in target_leaves(GradTargets(
+                            scene.verts, scene.mat_albedo,
+                            scene.mat_emission, scene.sph_center,
+                            scene.sph_radius))])
 
 
 def scene_with(scene: Scene, p: GradTargets) -> Scene:
@@ -239,6 +241,6 @@ def render_and_grad(scene: Scene, cam, cfg: RenderConfig, base_key,
     loss = loss_fn(params, target)
     leaves = target_leaves(params)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return loss.detach(), _from_leaves(
+    return loss.detach(), from_leaves(
         [torch.zeros_like(p) if g is None else g
          for p, g in zip(leaves, grads)])

@@ -234,14 +234,16 @@ def render_batch(scene, bvh: Accel | None, cam: Camera, cfg: RenderConfig,
 
 def render(scene, cam: Camera, cfg: RenderConfig, seed: int = 1234,
            bvh: Accel | None = None, state: AccumState | None = None,
-           progress_cb=None, *, device="cuda") -> AccumState:
+           progress_cb=None, *, idx=None, device="cuda") -> AccumState:
     """Full progressive render on ``device``: build the accel structure if
     needed (host, like the reference's buildBVH, kernel.cu:601), then render
     ``cfg.spp`` samples in ``cfg.samples_per_call`` chunks, calling
     ``progress_cb(done, state)`` after each chunk (the CLI's progress lines
     and checkpoints). A pinhole camera without jitter turns on
     ``reuse_primary_hit``. Brute force (``cfg.traversal == 'brute'``) builds
-    no accel structure."""
+    no accel structure. ``idx``: the Morton pixel indices to render
+    (default: the whole image), as ``render_batch`` takes them; a new
+    ``state`` then holds as many pixels (a rank's range, parallel/)."""
     check_supported(cfg)
     device = torch.device(device)
     for name, t in (("scene", scene.tri_v0), ("camera", cam.radius)):
@@ -253,7 +255,8 @@ def render(scene, cam: Camera, cfg: RenderConfig, seed: int = 1234,
     prep = (make_packet_prep(scene, bvh, cfg.intersector)
             if cfg.traversal == "packets" else None)
     if state is None:
-        state = init_accum(cfg, device=device)
+        state = init_accum(cfg, device=device, num_pixels=None
+                           if idx is None else idx.shape[0])
     if (not cfg.reuse_primary_hit and not cfg.jitter
             and float(cam.radius) == 0.0):
         cfg = dataclasses.replace(cfg, reuse_primary_hit=True)
@@ -262,7 +265,7 @@ def render(scene, cam: Camera, cfg: RenderConfig, seed: int = 1234,
     while done < cfg.spp:
         todo = min(cfg.samples_per_call, cfg.spp - done)
         state = render_batch(scene, bvh, cam, cfg, base_key, state, todo,
-                             prep=prep)
+                             prep=prep, idx=idx)
         done += todo
         if progress_cb is not None:
             progress_cb(done, state)

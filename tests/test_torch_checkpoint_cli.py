@@ -214,10 +214,17 @@ def test_cli_without_a_card_fails_by_default(tmp_path):
     assert not os.path.exists(tmp_path / "img.ppm")
 
 
-def test_cli_sharded_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tcli.main(CLI_RENDER + ["--spp", "2", "--device", "cpu", "--sharded",
-                                "-o", str(tmp_path / "img.ppm")])
+def test_cli_sharded_one_rank_matches_unsharded(tmp_path):
+    """``render --sharded`` without torchrun renders on a one-rank group
+    (parallel/mesh.py) and writes the unsharded CLI's PNG byte for byte."""
+    pngs = [str(tmp_path / f"{n}.png") for n in ("plain", "sharded")]
+    base = CLI_RENDER + ["--spp", "2", "--device", "cpu"]
+    r1 = _run_cli(base + ["-o", pngs[0]])
+    assert r1.returncode == 0, r1.stderr[-2000:]
+    r2 = _run_cli(base + ["--sharded", "-o", pngs[1]])
+    assert r2.returncode == 0, r2.stderr[-2000:]
+    assert "mesh: 1 devices" in r2.stderr and "Mrays/s" in r2.stderr
+    assert open(pngs[0], "rb").read() == open(pngs[1], "rb").read()
 
 
 def test_cli_packet_engine_takes_auto_only(tmp_path):
