@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
 Drives the port's render paths (PT+NEE and BDPT through the packet engine
-and its CUDA kernels K1, K2 and K3, with either triangle intersector) at
-the JAX bench's sizes, its other two engines and its differentiable pass
-(the bench's train step), and checks them:
+and its CUDA kernels K1, K2 and K3, with either triangle intersector, each
+cull and the batching knobs) at the JAX bench's sizes, its other two
+engines and its differentiable pass (the bench's train step), and checks
+them:
 
 1. device: a CUDA card is required; its name and power limit are printed;
 2. build: K1, K2, K3 (nvcc, sm_90a; each with its Baldwin-Weber and
@@ -134,6 +135,25 @@ the JAX bench's sizes, its other two engines and its differentiable pass
    sample: K1's lane tests (its counting instance) and the range's
    CUDA-event ms, and worst over mean of each. Then K1 on rank 0 of 2's
    bounce batch, as step 5 checks a batch.
+15. twolevel (K2, then K1): (a) colonnade subdiv TWOLEVEL_SUBDIV (1,311,124
+   triangles) at cluster_size TWOLEVEL_C (K = 3,700, its pack past the
+   resident budget), two_level_cull left at auto: the route must be the
+   capped two-level cull with K2 (printed with Ms, M and P); one sample's
+   trace calls with the rays its fallback walk took, the walk's steps and
+   ms (``fallback[twolevel]``); on the primary and sorted bounce batches
+   K2 on the two-level shortlists as step 9 checks a batch (K1 beside it
+   bit for bit, plain on SAMPLE_TILES sampled tiles, both counting
+   instances, the schedule, the bound); the trace's hits against the flat
+   cull's (two_level_cull=False, K2 over all K clusters) on the same rays
+   bit for bit, each trace's ms and peak memory; TWOLEVEL_WINDOWS windows
+   of TWOLEVEL_SPP spp of each cull in turns, K2 alone launching, images
+   bit-identical. (b) BDPT 512^2 (step 11's scene) at sample_batch 2 and 1
+   in turns, KNOB_WINDOWS windows of 8 spp each: bit-identical images, K1
+   alone, K1's launches per sample, Mrays/s, peak memory; K1 on the joint
+   subpath batch of two samples (4R rays) as step 5 checks a batch.
+   (c) The headline at its default, sample_batch 2, packet_rounds 2 with
+   packet_first_round 2 and sort_window KNOB_SORT_WINDOW in turns, the
+   same checks and numbers.
 
 Each render path runs with every kernel's launch count and every plain
 version's call count set to 0 just before its timed windows and read just
@@ -160,8 +180,12 @@ launches in the live config's whole run and per sample there and on the OBJ
 path, and its time on the OBJ path's bounce batch, and
 dense_resident/sharded with K1's launches in the world-1 sharded windows
 and per rank per sample on two ranks, its time on a rank's bounce batch,
-both worlds' Mrays/s and the split's worst/mean figures), the last line the
-device record.
+both worlds' Mrays/s and the split's worst/mean figures, and dense/twolevel
+with K2's numbers on the two-level bounce batch, its launches in the
+two-level windows and per sample, the fallback's rays, steps and ms per
+sample, both culls' trace ms and Mrays/s, and the sample_batch, rounds
+and window variants' Mrays/s and K1 launches per sample), the last line
+the device record.
 
 Run: python3 chip_smoke.py
 """
@@ -242,6 +266,16 @@ OBJ_SPP = 4
 SGD_STEP_FRAC = 0.1
 RANK_TIMEOUT_S = 600
 SPLIT_WORLDS = (2, 4, 8)
+# the two-level phase (15): colonnade subdiv 6 at C = 512 (K = 3,700, its
+# pack past the resident budget), 1-spp windows of each cull in turns; the
+# knobs' windows (BDPT at sample_batch 2 and 1, the headline's variants)
+# and the headline's sort window
+TWOLEVEL_SUBDIV = 6
+TWOLEVEL_C = 512
+TWOLEVEL_SPP = 1
+TWOLEVEL_WINDOWS = 2
+KNOB_WINDOWS = 2
+KNOB_SORT_WINDOW = 65536
 # one H100 SXM (its data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -375,12 +409,14 @@ def sample_tiles(sl, n):
     return type(sl)(*(a[idx].contiguous() for a in sl))
 
 
-def record_batches(scene, trace_fn, cam, cfg, base_key, idx=None):
+def record_batches(scene, trace_fn, cam, cfg, base_key, idx=None, S=1):
     """The batches of one sample of ``cfg.integrator`` as the renderer's
     trace closure receives them, each (o, d, mask, t_cap or None): pt_nee's
     primary and first bounce batches; BDPT's primary batch (R rays), its
     joint subpath batch (2R) and its capped connection batch (4R). ``idx``:
-    the Morton pixels traced (default the whole image)."""
+    the Morton pixels traced (default the whole image). ``S``: the first S
+    samples traced as one batch, as ``sample_batch`` S traces them (S
+    times the rays)."""
     from cudapathtracer_tpu_torch.ops.rng import pixel_keys, sample_key
     from cudapathtracer_tpu_torch.render.camera import camera_rays
     from cudapathtracer_tpu_torch.render.renderer import _radiance
@@ -394,8 +430,9 @@ def record_batches(scene, trace_fn, cam, cfg, base_key, idx=None):
         calls.append((o, d, mask, t_cap))
         return trace_fn(o, d, mask, t_cap=t_cap, vis_band=vis_band)
 
-    keys = pixel_keys(sample_key(base_key, 0), idx)
-    o0, d0 = camera_rays(cam, idx, keys, lens=False)
+    keys = torch.cat([pixel_keys(sample_key(base_key, i), idx)
+                      for i in range(S)])
+    o0, d0 = camera_rays(cam, idx.repeat(S), keys, lens=False)
     _radiance(o0, d0, scene, recording, keys, cfg)
     if cfg.integrator == "bdpt":
         return {"primary": calls[0], "subpath": calls[1],
@@ -403,9 +440,11 @@ def record_batches(scene, trace_fn, cam, cfg, base_key, idx=None):
     return {"primary": calls[0], "bounce1": calls[1]}
 
 
-def sorted_shortlists(batch, pd, P, cfg, super_factor=None):
+def sorted_shortlists(batch, pd, P, cfg, super_factor=None,
+                      super_slots=None):
     """Sort one batch's rays (and caps) as the packet engine does and build
-    its shortlists (in super units with ``super_factor``)."""
+    its shortlists (in super units with ``super_factor``; the capped
+    two-level cull's, in cluster units, with ``super_slots`` too)."""
     from cudapathtracer_tpu_torch.ops import packets
     from cudapathtracer_tpu_torch.ops.vecmath import Vec3
 
@@ -415,38 +454,90 @@ def sorted_shortlists(batch, pd, P, cfg, super_factor=None):
         Vec3(o.x[perm], o.y[perm], o.z[perm]),
         Vec3(d.x[perm], d.y[perm], d.z[perm]), mask[perm], pd, P,
         cfg.max_clusters, super_factor=super_factor,
-        super_list=cfg.super_list, t_cap=None if cap is None else cap[perm])
+        super_list=cfg.super_list, t_cap=None if cap is None else cap[perm],
+        super_slots=super_slots)
 
 
 def trace_breakdown(label, scene, trace_fn, cam, cfg, base_key):
     """One sample (primary trace included) with every trace call timed
-    between synchronizes, against the sample's wall time."""
+    between synchronizes, against the sample's wall time; where the packet
+    engine's fallback walk ran, a ``fallback[label]`` line per trace call
+    (its live rays, the rays the walk took, its steps and ms) and one for
+    the sample. -> (walk rays, steps, ms) summed over the sample."""
     from cudapathtracer_tpu_torch.ops.rng import pixel_keys, sample_key
     from cudapathtracer_tpu_torch.render.camera import camera_rays
     from cudapathtracer_tpu_torch.render.renderer import _radiance
 
     dev = cam.pos.x.device
     idx = torch.arange(cfg.num_pixels, dtype=torch.int64, device=dev)
-    trace_ms = []
+    calls = []
 
-    def timed(o, d, mask, **kw):
-        h, ms = host_ms(lambda: trace_fn(o, d, mask, **kw))
-        trace_ms.append(ms)
-        return h
+    with WalkLog() as walk:
+        def timed(o, d, mask, **kw):
+            before = len(walk.calls)
+            h, ms = host_ms(lambda: trace_fn(o, d, mask, **kw))
+            calls.append((int(mask.sum()), walk.calls[before:], ms))
+            return h
 
-    def one_sample():
-        keys = pixel_keys(sample_key(base_key, 0), idx)
-        o0, d0 = camera_rays(cam, idx, keys, lens=False)
-        primary = timed(o0, d0, torch.ones(idx.shape, dtype=torch.bool,
-                                           device=dev))
-        return _radiance(o0, d0, scene, timed, keys, cfg,
-                         primary_hit=primary)
+        def one_sample():
+            keys = pixel_keys(sample_key(base_key, 0), idx)
+            o0, d0 = camera_rays(cam, idx, keys, lens=False)
+            primary = timed(o0, d0, torch.ones(idx.shape, dtype=torch.bool,
+                                               device=dev))
+            return _radiance(o0, d0, scene, timed, keys, cfg,
+                             primary_hit=primary)
 
-    _, wall = host_ms(one_sample)
-    print(f"{label}: sample trace_calls={len(trace_ms)} trace_ms="
+        _, wall = host_ms(one_sample)
+        walk.count_steps()
+    calls = [(rays, *(sum(c[k] for c in fb) for k in range(3)), ms)
+             for rays, fb, ms in calls]
+    trace_ms = [c[4] for c in calls]
+    print(f"{label}: sample trace_calls={len(calls)} trace_ms="
           f"{[round(m, 3) for m in trace_ms]} trace_total_ms="
           f"{sum(trace_ms):.3f} sample_wall_ms={wall:.3f} (synchronize "
           "after every trace call)")
+    tot = [sum(c[k] for c in calls) for k in range(4)]
+    if tot[1]:
+        for i, (rays, fb, steps, walk_ms, ms) in enumerate(calls):
+            print(f"fallback[{label}]: trace_call={i} live_rays={rays} "
+                  f"fallback_rays={fb} ({fb / max(rays, 1):.4%}) "
+                  f"walk_steps={steps} walk_ms={walk_ms:.3f} "
+                  f"trace_ms={ms:.3f}")
+        print(f"fallback[{label}]: sample live_rays={tot[0]} fallback_rays="
+              f"{tot[1]} walk_steps={tot[2]} walk_ms={tot[3]:.3f} of "
+              f"trace_ms={sum(trace_ms):.3f}")
+    return tot[1], tot[2], tot[3]
+
+
+class WalkLog:
+    """The packet engine's fallback walk while entered: each call's rays,
+    synchronized ms and, once ``count_steps`` has run the walks again with
+    their stats (untimed), loop steps: ``calls`` [rays, steps, ms]."""
+
+    def __enter__(self):
+        from cudapathtracer_tpu_torch.ops import packets
+
+        self._packets, self._orig = packets, packets.trace
+        self.calls, self._args = [], []
+
+        def logged(o, d, td, mask=None, intersector="bw"):
+            hit, ms = host_ms(lambda: self._orig(
+                o, d, td, mask=mask, intersector=intersector))
+            self.calls.append([int(mask.sum()), 0, ms])
+            self._args.append((o, d, td, mask, intersector))
+            return hit
+
+        packets.trace = logged
+        return self
+
+    def count_steps(self):
+        for call, (o, d, td, mask, isect) in zip(self.calls, self._args):
+            call[1] = int(self._orig(o, d, td, mask=mask, with_stats=True,
+                                     intersector=isect)[1].steps)
+        self._args = []
+
+    def __exit__(self, *exc):
+        self._packets.trace = self._orig
 
 
 def reset_counts(kernels):
@@ -545,8 +636,8 @@ class TraceLog:
 
         self._rg, self._orig = rg, rg.make_trace_fn
 
-        def make(scene, cfg, bvh, prep=None):
-            base = self._orig(scene, cfg, bvh, prep)
+        def make(scene, cfg, bvh, prep=None, **kw):
+            base = self._orig(scene, cfg, bvh, prep, **kw)
 
             def fn(o, d, mask, t_cap=None, vis_band=0.0):
                 h = base(o, d, mask, t_cap=t_cap, vis_band=vis_band)
@@ -678,7 +769,7 @@ def train_phase(dev, kernels, size=TRAIN_SIZE,
                           focal_length=2.0, device=dev)
     K, C = bvh.cl_tri.shape
     P = renderer.resolve_tile_size(cfg, scene.num_tris)
-    kern = packets.route(K, C, cfg.two_level_cull, cfg.super_factor)
+    kern = packets.route(K, C, cfg.two_level_cull, cfg.super_factor).kernel
     print(f"train: scene tris={scene.num_tris} clusters={K} C={C} P={P} "
           f"route={kern} {size}x{size} spp=1 pt_nee "
           f"bounces={cfg.num_bounces} reuse_primary_hit=False")
@@ -1576,6 +1667,240 @@ def sharded_phase(dev, kernels, check_batch, base_key, live_png,
     return res, extra, launches_a
 
 
+def windows_in_turns(label, kernels, expect, runs, rays, windows):
+    """Render windows of several configurations of one path in turns (the
+    order reversed every other round) after a warm-up of each, every count
+    at 0 before each window and read after it: ``expect`` alone must
+    launch, each configuration's windows must repeat bit for bit and every
+    configuration must render the first one's image bit for bit, finite and
+    lit. ``runs``: {name: () -> AccumState}; ``rays``: rays a window.
+    -> {name: {"launches", "mrays", "peak_mib"}}."""
+    names = list(runs)
+    bits = {}
+    for n in names:
+        bits[n] = state_bits(runs[n]())
+    torch.cuda.synchronize()
+    walls = {n: [] for n in names}
+    launches = dict.fromkeys(names, 0)
+    peak = dict.fromkeys(names, 0)
+    for i in range(windows):
+        for n in (names if i % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            reset_counts(kernels)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            st = runs[n]()
+            torch.cuda.synchronize()
+            walls[n].append(time.perf_counter() - t0)
+            launches[n] += path_counts(f"{label}/{n}", kernels,
+                                       expect)[0][expect]
+            peak[n] = max(peak[n], torch.cuda.max_memory_allocated())
+            if not all(torch.equal(a, b)
+                       for a, b in zip(state_bits(st), bits[n])):
+                raise AssertionError(f"{label}/{n}: windows of one seed "
+                                     "differ")
+    same = {n: all(torch.equal(a, b) for a, b in zip(bits[n],
+                                                     bits[names[0]]))
+            for n in names}
+    img = torch.stack(bits[names[0]][:3], dim=1).view(torch.float32)
+    finite = bool(torch.isfinite(img).all())
+    out = {}
+    for n in names:
+        ws = walls[n]
+        out[n] = dict(launches=launches[n], peak_mib=peak[n] / 2**20,
+                      mrays=rays * windows / sum(ws) / 1e6)
+        print(f"{label}: {n} windows={windows} window_seconds="
+              f"{[round(w, 4) for w in ws]} mrays_per_s={out[n]['mrays']:.3f}"
+              f" window_mrays_per_s_min={rays / max(ws) / 1e6:.3f} "
+              f"max={rays / min(ws) / 1e6:.3f} {expect}_launches="
+              f"{launches[n]} peak_mib={out[n]['peak_mib']:.1f} "
+              f"bit_identical_to_{names[0]}={same[n]}")
+    print(f"{label}: images_bit_identical={all(same.values())} "
+          f"finite={finite} image_max={float(img.max()):.4f} (windows in "
+          f"turns: {', '.join(names)}, then reversed)")
+    if not (all(same.values()) and finite and float(img.max()) > 0):
+        raise AssertionError(f"{label}: images differ, or are not finite "
+                             "and lit")
+    return out
+
+
+def twolevel_phase(dev, kernels, check_batch, base_key, size=HEADLINE_SIZE,
+                   subdiv=TWOLEVEL_SUBDIV, cluster_size=TWOLEVEL_C,
+                   spp=TWOLEVEL_SPP, windows=TWOLEVEL_WINDOWS,
+                   bdpt_size=BDPT_SIZE, bdpt_spp=BDPT_SPP,
+                   headline_subdiv=3, headline_spp=HEADLINE_SPP,
+                   knob_windows=KNOB_WINDOWS, sort_window=KNOB_SORT_WINDOW):
+    """Phase 15: (a) the auto capped two-level cull with K2 on colonnade
+    subdiv ``subdiv`` at ``cluster_size`` (K past 2048, the pack past the
+    resident budget); (b) BDPT at ``sample_batch`` 2 beside 1; (c) the
+    headline at ``sample_batch`` 2, straggler rounds and a sort window
+    beside the default. -> (K2's numbers on the two-level bounce batch,
+    the extra keys of its JSON entry, K2's launches in the two-level
+    windows)."""
+    import cudapathtracer_tpu_torch as cpt
+    from cudapathtracer_tpu_torch.models import procedural
+    from cudapathtracer_tpu_torch.ops import packets, traversal
+    from cudapathtracer_tpu_torch.ops.kernels.dense_resident import (
+        resident_fits)
+    from cudapathtracer_tpu_torch.render import renderer
+
+    def camera(w):
+        return cpt.make_camera(pos=(0.0, 2.0, 3.4), width=w, height=w,
+                               focal_length=2.0, device=dev)
+
+    # ---- (a) the capped two-level cull, K2 ---------------------------------
+    scene = procedural.to_scene(procedural.colonnade(subdiv=subdiv), dev)
+    cfg = cpt.RenderConfig(width=size, height=size, spp=spp,
+                           integrator="pt_nee", samples_per_call=spp,
+                           reuse_primary_hit=True, cluster_size=cluster_size)
+    t0 = time.perf_counter()
+    bvh = renderer.build_bvh_for_scene(scene, cfg.leaf_size,
+                                       cluster_size=cluster_size)
+    accel_s = time.perf_counter() - t0
+    cam = camera(size)
+    P = renderer.resolve_tile_size(cfg, scene.num_tris)
+    K, C = bvh.cl_tri.shape
+    F = cfg.super_factor
+    Ms = min(cfg.super_slots, -(-K // F))
+    M = min(cfg.max_clusters, Ms * F)
+    rt = packets.route(K, C, cfg.two_level_cull, F)
+    prep = renderer.make_packet_prep(scene, bvh)
+    pack_mb = sum(a.numel() * a.element_size()
+                  for a in prep.resident_pack) / 1e6
+    print(f"twolevel: scene tris={scene.num_tris} clusters={K} C={C} P={P} "
+          f"route={rt.cull}+{rt.kernel} super_factor={F} "
+          f"super_slots={cfg.super_slots} Ms={Ms} M={M} pack_mb={pack_mb:.1f}"
+          f" resident_fits={resident_fits(K, C)} accel_s={accel_s:.2f}")
+    if tuple(rt) != ("two_level", "stream"):
+        raise AssertionError(f"twolevel took {rt}, not the two-level cull "
+                             "with K2")
+    trace_fn = renderer.make_trace_fn(scene, cfg, bvh, prep=prep)
+    fb_rays, fb_steps, fb_ms = trace_breakdown(
+        "twolevel", scene, trace_fn, cam, cfg, base_key)
+    batches = record_batches(scene, trace_fn, cam, cfg, base_key)
+    res = {}
+    for bname, batch in batches.items():
+        res[bname] = check_batch(f"twolevel/{bname}", "k2", batch, scene,
+                                 prep, cfg, P, None, False, two_level=True)
+    td = traversal.make_trace_data(scene, bvh.fine)
+    trace_ms = {}
+    for bname, (o, d, mask, cap) in batches.items():
+        kw = dict(fine_td=td, mask=mask, tile_size=P,
+                  max_clusters=cfg.max_clusters, sort=True,
+                  resident_pack=prep.resident_pack, t_cap=cap)
+        hits, ms, peak = {}, {}, {}
+        for cull, tl in (("two_level", None), ("flat", False)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            hits[cull], ms[cull] = host_ms(lambda: packets.trace_packets(
+                o, d, prep.pdata, two_level=tl, **kw))
+            peak[cull] = torch.cuda.max_memory_allocated() / 2**20
+        a, b = hits["two_level"], hits["flat"]
+        same = (torch.equal(a.tri, b.tri)
+                and torch.equal(a.t.view(torch.int32), b.t.view(torch.int32)))
+        trace_ms[bname] = ms
+        print(f"twolevel/{bname}: rays={mask.shape[0]} live={int(mask.sum())}"
+              f" hits_bit_identical_to_flat_cull={same} differing_ids="
+              f"{int((a.tri != b.tri).sum())} two_level_trace_ms="
+              f"{ms['two_level']:.3f} flat_trace_ms={ms['flat']:.3f} "
+              f"(one synchronized call each, K = {K}) peak_mib two_level="
+              f"{peak['two_level']:.1f} flat={peak['flat']:.1f}")
+        if not same:
+            raise AssertionError(f"twolevel/{bname}: the two-level cull's "
+                                 "hits differ from the flat cull's")
+
+    def window(c, s=None, sc=scene, bv=bvh, cm=cam, pp=prep):
+        return lambda: cpt.render_batch(sc, bv, cm, c, base_key,
+                                        cpt.init_accum(c, device=dev),
+                                        s or c.spp, prep=pp)
+
+    rays = cfg.num_pixels * spp * (cfg.num_bounces + 1)
+    culls = windows_in_turns(
+        "twolevel", kernels, "k2",
+        {"two_level": window(cfg),
+         "flat": window(dataclasses.replace(cfg, two_level_cull=False))},
+        rays, windows)
+    del batches, prep, trace_fn, td, bvh, scene
+    torch.cuda.empty_cache()
+
+    # ---- (b) BDPT at sample_batch 2 beside 1, K1 ---------------------------
+    bscene = procedural.to_scene(procedural.colonnade(subdiv=3), dev)
+    bcfg = cpt.RenderConfig(width=bdpt_size, height=bdpt_size, spp=bdpt_spp,
+                            samples_per_call=bdpt_spp, reuse_primary_hit=True)
+    bbvh = renderer.build_bvh_for_scene(bscene, bcfg.leaf_size)
+    bprep = renderer.make_packet_prep(bscene, bbvh)
+    bcam = camera(bdpt_size)
+    brays = bcfg.num_pixels * bdpt_spp * (bcfg.num_bounces + 1)
+    bwin = windows_in_turns(
+        "sample_batch/bdpt", kernels, "k1",
+        {"s1": window(bcfg, sc=bscene, bv=bbvh, cm=bcam, pp=bprep),
+         "s2": window(dataclasses.replace(bcfg, sample_batch=2), sc=bscene,
+                      bv=bbvh, cm=bcam, pp=bprep)},
+        brays, knob_windows)
+    # K1 on the joint subpath batch of two samples (4R rays)
+    btrace = renderer.make_trace_fn(bscene, bcfg, bbvh, prep=bprep)
+    bb = record_batches(bscene, btrace, bcam, bcfg, base_key, S=2)
+    if bb["subpath"][0].x.shape[0] != 4 * bcfg.num_pixels:
+        raise AssertionError("sample_batch/bdpt: the joint subpath batch of "
+                             "two samples is not 4R rays")
+    k1_res = check_batch("sample_batch/bdpt/subpath", "k1", bb["subpath"],
+                         bscene, bprep, bcfg, renderer.resolve_tile_size(
+                             bcfg, bscene.num_tris), None, False)
+    del bb, btrace, bprep, bbvh, bscene
+    torch.cuda.empty_cache()
+
+    # ---- (c) the headline: sample_batch 2, rounds and a window -------------
+    hscene = procedural.to_scene(
+        procedural.colonnade(subdiv=headline_subdiv), dev)
+    hcfg = cpt.RenderConfig(width=size, height=size, spp=headline_spp,
+                            integrator="pt_nee", samples_per_call=headline_spp,
+                            reuse_primary_hit=True)
+    hbvh = renderer.build_bvh_for_scene(hscene, hcfg.leaf_size)
+    hprep = renderer.make_packet_prep(hscene, hbvh)
+    hrays = hcfg.num_pixels * headline_spp * (hcfg.num_bounces + 1)
+    knobs = {"default": {}, "sample_batch2": dict(sample_batch=2),
+             "rounds2": dict(packet_rounds=2, packet_first_round=2),
+             f"window{sort_window}": dict(sort_window=sort_window)}
+    hwin = windows_in_turns(
+        "knobs/headline", kernels, "k1",
+        {n: window(dataclasses.replace(hcfg, **kw), sc=hscene, bv=hbvh,
+                   cm=camera(size), pp=hprep) for n, kw in knobs.items()},
+        hrays, knob_windows)
+    del hprep, hbvh, hscene
+    torch.cuda.empty_cache()
+
+    per = {"twolevel": (culls, windows * spp),
+           "bdpt": (bwin, knob_windows * bdpt_spp),
+           "headline": (hwin, knob_windows * headline_spp)}
+    for label, (runs, samples) in per.items():
+        print(f"launches_per_sample[{label}]: " + " ".join(
+            f"{n}={r['launches'] / samples:.2f}" for n, r in runs.items()))
+    extra = {"route": f"{rt.cull}+{rt.kernel}", "clusters": K, "Ms": Ms,
+             "M": M, "P": P, "pack_mb": pack_mb,
+             "launches_per_sample": culls["two_level"]["launches"]
+             / (windows * spp),
+             "flat_cull_k2_launches": culls["flat"]["launches"],
+             "fallback_rays_per_sample": fb_rays,
+             "fallback_walk_steps_per_sample": fb_steps,
+             "fallback_walk_ms_per_sample": fb_ms,
+             "trace_ms_two_level_vs_flat": trace_ms,
+             "primary_ms": res["primary"]["ms"],
+             "mrays": {n: r["mrays"] for n, r in culls.items()},
+             "bdpt_sample_batch": {
+                 n: dict(mrays=r["mrays"], k1_launches_per_sample=r[
+                     "launches"] / (knob_windows * bdpt_spp),
+                     peak_mib=r["peak_mib"]) for n, r in bwin.items()},
+             "bdpt_s2_subpath_k1_ms": k1_res["ms"],
+             "bdpt_s2_subpath_k1_bound_ms": k1_res["bound"][0],
+             "headline_knobs": {
+                 n: dict(mrays=r["mrays"], k1_launches_per_sample=r[
+                     "launches"] / (knob_windows * headline_spp),
+                     peak_mib=r["peak_mib"]) for n, r in hwin.items()}}
+    out = dict(res["bounce1"])
+    out["max_abs"] = max(r["max_abs"] for r in res.values())
+    return out, extra, culls["two_level"]["launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1723,7 +2048,8 @@ def main():
                               focal_length=2.0, device=dev)
         P = renderer.resolve_tile_size(cfg, scene.num_tris)
         K, C = bvh.cl_tri.shape
-        kern = packets.route(K, C, cfg.two_level_cull, cfg.super_factor)
+        kern = packets.route(K, C, cfg.two_level_cull,
+                             cfg.super_factor).kernel
         print(f"{label}: scene tris={scene.num_tris} clusters={K} C={C} "
               f"P={P} route={kern} accel_s={t_accel:.2f}")
         return scene, cfg, bvh, cam, P, kern
@@ -1761,14 +2087,16 @@ def main():
                                  "schedule folds")
 
     def check_batch(label, want, batch, scene, prep, cfg, P, F, full_plain,
-                    equal_flat=False):
+                    equal_flat=False, two_level=False):
         """One batch of one path: the kernel against its plain version, its
         yardstick on the same rays timed in turns (K1: K2 on the same
         shortlists, which must agree bit for bit; K2: K1, the same; K3: K1
         on the flat shortlists, bit for bit too with ``equal_flat``), both
         counting instances, the schedule's folds and the bound; every
-        kernel with the pack's intersector. -> the numbers of the kernel's
-        JSON entry."""
+        kernel with the pack's intersector. ``two_level``: the shortlists
+        of the capped two-level cull (``cfg.super_factor``,
+        ``cfg.super_slots``), in cluster units. -> the numbers of the
+        kernel's JSON entry."""
         isect = cfg.intersector
         _, wrap, plain = kernels[want]
         other = "k2" if want == "k1" else "k1"
@@ -1782,8 +2110,11 @@ def main():
 
         extra = (F,) if F else ()
         pd, pack = prep.pdata, prep.resident_pack
+        lists = (dict(super_factor=cfg.super_factor,
+                      super_slots=cfg.super_slots) if two_level
+                 else dict(super_factor=F))
         sl, sl_ms = host_ms(lambda: sorted_shortlists(batch, pd, P, cfg,
-                                                      super_factor=F))
+                                                      **lists))
         args = (sl.ids, sl.counts, sl.entries, sl.rays, *pack)
         got = wrapper(*args, *extra)
         flat = sorted_shortlists(batch, pd, P, cfg) if F else sl
@@ -2031,59 +2362,6 @@ def main():
                                  "decisions differ from the closest hit's")
         return out
 
-    def bdpt_windows(label, scene, bvh, cam, cfg, prep, windows):
-        """Windows of cfg.spp BDPT samples with vis_dropout off and on, in
-        turns (off, on, on, off, ...) after a warm-up of each, every count
-        at 0 before them: the images must be bit-identical, finite and lit,
-        K1 alone may launch and no plain version may run. Mrays/s by the
-        bench's accounting, pixels x spp x (bounces + 1) / wall seconds.
-        -> K1's launches."""
-        cfgs = {"off": cfg, "on": dataclasses.replace(cfg, vis_dropout=True)}
-
-        def run(c):
-            return cpt.render_batch(scene, bvh, cam, c, base_key,
-                                    cpt.init_accum(c, device=dev), c.spp,
-                                    prep=prep)
-
-        imgs = {m: run(c) for m, c in cfgs.items()}
-        torch.cuda.synchronize()
-        reset_counts(kernels)
-        walls = {"off": [], "on": []}
-        for i in range(windows):
-            for m in (("off", "on") if i % 2 == 0 else ("on", "off")):
-                t0 = time.perf_counter()
-                st = run(cfgs[m])
-                torch.cuda.synchronize()
-                walls[m].append(time.perf_counter() - t0)
-                img = torch.stack(list(st.img), dim=1)
-                if i and not torch.equal(img, imgs[m]):
-                    raise AssertionError(f"{label}: windows of one seed "
-                                         "differ")
-                imgs[m] = img
-        launches, plain_calls = path_counts(label, kernels, "k1")
-        img = imgs["off"].cpu().numpy()
-        same = torch.equal(imgs["off"].view(torch.int32),
-                           imgs["on"].view(torch.int32))
-        finite = bool(np.isfinite(img).all())
-        rays = cfg.num_pixels * cfg.spp * (cfg.num_bounces + 1)
-        for m, ws in walls.items():
-            print(f"{label}: vis_dropout={m} {cfg.width}x{cfg.height} "
-                  f"spp={cfg.spp} windows={windows} "
-                  f"window_seconds={[round(w, 4) for w in ws]} "
-                  f"mrays_per_s={rays * windows / sum(ws) / 1e6:.3f} "
-                  f"window_mrays_per_s_min={rays / max(ws) / 1e6:.3f} "
-                  f"max={rays / min(ws) / 1e6:.3f}")
-        print(f"{label}: images_bit_identical={same} finite={finite} "
-              f"image_max={img.max():.4f} "
-              + " ".join(f"{n}_launches={v}" for n, v in launches.items())
-              + f" launches_per_sample="
-              f"{launches['k1'] / (2 * windows * cfg.spp):.2f} "
-              f"plain_calls={plain_calls}")
-        if not (same and finite and img.max() > 0):
-            raise AssertionError(f"{label}: images differ, or are not "
-                                 "finite and lit")
-        return launches["k1"]
-
     # ---- 5.-9. the render paths --------------------------------------------
     resident_src = "cudapathtracer_tpu/ops/pallas/dense_resident.py:999"
     super_cfg = dict(cluster_size=256, two_level_cull="super",
@@ -2179,8 +2457,22 @@ def main():
     vis_ms = vis_instances("bdpt/connection", batches["connection"], scene,
                            prep, cfg, P, bvh)
     trace_breakdown("bdpt", scene, trace_fn, cam, cfg, base_key)
-    launches = bdpt_windows("bdpt", scene, bvh, cam, cfg, prep,
-                            PATH_WINDOWS)
+    # windows with vis_dropout off and on, in turns: the same image
+
+    def bdpt_window(c):
+        return lambda: cpt.render_batch(scene, bvh, cam, c, base_key,
+                                        cpt.init_accum(c, device=dev),
+                                        c.spp, prep=prep)
+
+    wins = windows_in_turns(
+        "bdpt", kernels, "k1",
+        {"vis_dropout_off": bdpt_window(cfg),
+         "vis_dropout_on": bdpt_window(dataclasses.replace(
+             cfg, vis_dropout=True))},
+        cfg.num_pixels * cfg.spp * (cfg.num_bounces + 1), PATH_WINDOWS)
+    launches = sum(w["launches"] for w in wins.values())
+    print(f"bdpt: k1_launches_per_sample="
+          f"{launches / (2 * PATH_WINDOWS * cfg.spp):.2f}")
     entry = kernel_entry("dense_resident/bdpt", "dense_resident.cu",
                          resident_src, launches, conn)
     entry.update(vis_ms)
@@ -2210,6 +2502,15 @@ def main():
                                          live_png)
     entry = kernel_entry("dense_resident/sharded", "dense_resident.cu",
                          resident_src, launches, res)
+    entry.update(extra)
+    entries.append(entry)
+
+    # ---- 15. twolevel: the capped two-level cull, sample batches, rounds --
+    torch.cuda.empty_cache()
+    res, extra, launches = twolevel_phase(dev, kernels, check_batch, base_key)
+    entry = kernel_entry("dense/twolevel", "dense.cu",
+                         "cudapathtracer_tpu/ops/pallas/dense.py:343",
+                         launches, res)
     entry.update(extra)
     entries.append(entry)
 

@@ -26,6 +26,7 @@ converge to them.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -81,8 +82,8 @@ def make_diff_trace_fn(scene: Scene, base_trace_fn):
 
 
 def render_image_diff(scene: Scene, cam, cfg: RenderConfig, base_key,
-                      spp: int, bvh=None, idx=None, edge_samples: int = 0,
-                      edge_table=None,
+                      spp: int, bvh=None, trace_data=None, idx=None,
+                      edge_samples: int = 0, edge_table=None,
                       shadow_edge_samples: int = 0) -> Vec3:
     """The differentiable image, (R,) Vec3 in Morton order: the mean of
     ``spp`` samples, each checkpointed, plus the boundary terms.
@@ -92,7 +93,11 @@ def render_image_diff(scene: Scene, cam, cfg: RenderConfig, base_key,
     vertices on every call, so the packets are gathered again after each
     update. ``bvh`` is the accel structure the engines need (all but
     ``traversal='brute'``); its topology stays the input scene's, valid for
-    moves that keep the vertices in their leaf boxes. ``idx``: an optional
+    moves that keep the vertices in their leaf boxes. Without ``bvh``, a
+    fine ``trace_data`` (``traversal.make_trace_data``) serves every engine
+    but brute force with the per-ray walk, the analytic spheres folded in
+    (JAX render_grad.py:123-139); its vertices are the caller's, not the
+    current ones. ``idx``: an optional
     Morton-contiguous pixel tile; the boundary terms scatter only into it,
     so the tiles' images add up to the whole image's. ``edge_table``
     (``build_edge_table``) is needed by either boundary term."""
@@ -101,7 +106,12 @@ def render_image_diff(scene: Scene, cam, cfg: RenderConfig, base_key,
     dev = scene.verts.x.device
     # the hit search reads the current geometry, detached: the packets (no
     # cached prep) and the fine TraceData are built again on every call
-    base_trace = make_trace_fn(stop_gradient(scene), cfg, bvh)
+    if cfg.traversal != "brute" and bvh is None and trace_data is not None:
+        base_trace = make_trace_fn(
+            stop_gradient(scene), dataclasses.replace(cfg, traversal="bvh"),
+            None, trace_data=trace_data)
+    else:
+        base_trace = make_trace_fn(stop_gradient(scene), cfg, bvh)
     trace_fn = make_diff_trace_fn(scene, base_trace)
     if idx is None:
         idx = torch.arange(cfg.num_pixels, dtype=torch.int64, device=dev)

@@ -26,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..accel.bvh import Accel, FlatBVH
+from ..accel.bvh import Accel, FlatBVH, build_flat_host
 from ..accel.native import build_bvh_native
 from ..integrators.bdpt import BDPTParams, radiance_bdpt
 from ..integrators.pt_nee import PTParams, radiance_pt_nee
@@ -112,7 +112,7 @@ def make_packet_prep(scene, bvh: Accel,
 
 
 def make_trace_fn(scene, cfg: RenderConfig, bvh: Accel | None,
-                  prep: PacketPrep | None = None):
+                  prep: PacketPrep | None = None, trace_data=None):
     """The trace closure the integrators consume: (o, d, mask, t_cap=None,
     vis_band=0.0) -> Hit by ``cfg.traversal`` with ``cfg.intersector``,
     and the scene's analytic spheres folded over the triangle hit
@@ -126,19 +126,21 @@ def make_trace_fn(scene, cfg: RenderConfig, bvh: Accel | None,
     ignore ``vis_band``: the closest hit decides a visibility query
     alike. The search data (the fine ``TraceData`` and, without ``prep``,
     the packet prep) is built here from the scene's current vertices,
-    detached: every engine is (ops/traversal.py)."""
+    detached: every engine is (ops/traversal.py). ``trace_data``: the
+    'bvh' engine's fine ``TraceData``, given in place of ``bvh``."""
     with torch.no_grad():
-        return _make_trace_fn(scene, cfg, bvh, prep)
+        return _make_trace_fn(scene, cfg, bvh, prep, trace_data)
 
 
-def _make_trace_fn(scene, cfg, bvh, prep):
+def _make_trace_fn(scene, cfg, bvh, prep, trace_data):
     if cfg.traversal == "brute":
         def base(o, d, mask, t_cap=None, vis_band=0.0):
             h = traversal.trace_bruteforce(o, d, scene, mask=mask,
                                            intersector=cfg.intersector)
             return h if t_cap is None else traversal.apply_t_cap(h, t_cap)
     elif cfg.traversal == "bvh":
-        td = traversal.make_trace_data(scene, bvh.fine)
+        td = (trace_data if trace_data is not None
+              else traversal.make_trace_data(scene, bvh.fine))
 
         def base(o, d, mask, t_cap=None, vis_band=0.0):
             h = traversal.trace(o, d, td, mask=mask,
@@ -149,6 +151,9 @@ def _make_trace_fn(scene, cfg, bvh, prep):
         if prep is None:
             prep = make_packet_prep(scene, bvh, cfg.intersector)
         ts_base = resolve_tile_size(cfg, scene.num_tris)
+        # straggler rounds: pt_nee's knob and BDPT's own
+        rounds = (cfg.packet_rounds if cfg.integrator == "pt_nee"
+                  else cfg.packet_rounds_bdpt)
 
         def base(o, d, mask, t_cap=None, vis_band=0.0):
             # the tile size keys on the call site, with or without the
@@ -161,7 +166,9 @@ def _make_trace_fn(scene, cfg, bvh, prep):
             return packets.trace_packets(
                 o, d, prep.pdata, fine_td=td, mask=mask, tile_size=ts,
                 max_clusters=cfg.max_clusters, sort=cfg.packet_sort,
-                two_level=cfg.two_level_cull, super_factor=cfg.super_factor,
+                rounds=rounds, first_round_slots=cfg.packet_first_round,
+                sort_window=cfg.sort_window, two_level=cfg.two_level_cull,
+                super_factor=cfg.super_factor, super_slots=cfg.super_slots,
                 super_list=cfg.super_list, resident_pack=prep.resident_pack,
                 t_cap=t_cap, vis_band=vis_band, intersector=cfg.intersector)
 
@@ -201,7 +208,12 @@ def render_batch(scene, bvh: Accel | None, cam: Camera, cfg: RenderConfig,
     ``idx``: the Morton pixel indices this call covers (default: the whole
     image), with ``state`` of as many pixels. The randoms key on the pixel
     index, not on its position, so tiles rendered apart equal the whole
-    image's pixels (JAX renderer.py:255-273)."""
+    image's pixels (JAX renderer.py:255-273).
+
+    ``cfg.sample_batch`` S traces the rays of S samples as one batch
+    (``num_samples // S`` groups of S, then the rest one at a time; JAX
+    renderer.py:296-337): each sample's radiance and its accumulation in
+    order are those of S = 1, so the image is the same bit for bit."""
     check_supported(cfg)
     dev = cam.pos.x.device
     trace_fn = make_trace_fn(scene, cfg, bvh, prep=prep)
@@ -222,13 +234,32 @@ def render_batch(scene, bvh: Accel | None, cam: Camera, cfg: RenderConfig,
         primary = trace_fn(o0, d0, torch.ones(idx.shape, dtype=torch.bool,
                                               device=dev))
 
-    for i in range(num_samples):
-        keys = pixel_keys(sample_key(base_key, state.n), idx)
-        o, d = camera_rays(cam, idx, keys, jitter=cfg.jitter,
-                           lens=not cfg.reuse_primary_hit)
+    R = idx.shape[0]
+
+    def group_of(st: AccumState, S: int) -> AccumState:
+        """S samples whose rays trace as one (S R,) batch."""
+        keys = [pixel_keys(sample_key(base_key, st.n + i), idx)
+                for i in range(S)]
+        keys = torch.cat(keys) if S > 1 else keys[0]
+        o, d = camera_rays(cam, idx.repeat(S) if S > 1 else idx, keys,
+                           jitter=cfg.jitter, lens=not cfg.reuse_primary_hit)
+        prim = primary
+        if prim is not None and S > 1:
+            prim = traversal.Hit(*(a.repeat(S) for a in primary))
         sample = _radiance(o, d, scene, trace_fn, keys, cfg,
-                           primary_hit=primary)
-        state = _accum_update(state, sample, cfg.compensated_accum)
+                           primary_hit=prim)
+        if S == 1:
+            return _accum_update(st, sample, cfg.compensated_accum)
+        for i in range(S):
+            part = sample.map(lambda c: c[i * R:(i + 1) * R])
+            st = _accum_update(st, part, cfg.compensated_accum)
+        return st
+
+    S = max(1, int(cfg.sample_batch))
+    for _ in range(num_samples // S):
+        state = group_of(state, S)
+    for _ in range(num_samples % S):
+        state = group_of(state, 1)
     return state
 
 
@@ -272,9 +303,13 @@ def render(scene, cam: Camera, cfg: RenderConfig, seed: int = 1234,
     return state
 
 
-def _build_flat_host(verts, tris, leaf_size: int):
+def _build_flat_host(verts, tris, leaf_size: int, use_native: bool = True):
     """One flat BVH as host arrays (lo (N,3), hi (N,3), skip, leaf,
-    leaf_tri) from the native builder. A failed build raises."""
+    leaf_tri): the native builder, or with ``use_native=False`` the numpy
+    twin (accel/bvh.py), which builds the same tree. A failed native build
+    raises; it never falls back to the twin."""
+    if not use_native:
+        return build_flat_host(verts, tris, leaf_size)[:5]
     d, depth = build_bvh_native(verts, tris, leaf_size)
     if depth >= MAX_BVH_DEPTH:
         # the reference's fatal guard (kernel.cu:627-631)
@@ -316,11 +351,12 @@ def adaptive_cluster_size(num_tris: int) -> int:
     return min(1024, 128 * max(2, round(c / 128)))
 
 
-def build_bvh_for_scene(scene, leaf_size: int = 4,
+def build_bvh_for_scene(scene, leaf_size: int = 4, use_native: bool = True,
                         cluster_size: int | None = None) -> Accel:
     """Host accel build from the scene's host geometry: the fine per-ray BVH
     (``leaf_size``) plus the cluster level (``cluster_size``), uploaded to
-    the scene's device."""
+    the scene's device. ``use_native=False`` builds with the numpy twin
+    (accel/bvh.py) instead of the native builder."""
     verts, tris = scene.host_verts, scene.host_tris
     dev = scene.device
     if cluster_size is None:
@@ -329,12 +365,13 @@ def build_bvh_for_scene(scene, leaf_size: int = 4,
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    lo, hi, skip, leaf, leaf_tri = _build_flat_host(verts, tris, leaf_size)
+    lo, hi, skip, leaf, leaf_tri = _build_flat_host(verts, tris, leaf_size,
+                                                    use_native)
     fine = FlatBVH(*(t(lo[:, i]) for i in range(3)),
                    *(t(hi[:, i]) for i in range(3)),
                    node_skip=t(skip), node_leaf=t(leaf), leaf_tri=t(leaf_tri))
     c_lo, c_hi, _, c_leaf, c_ltri = _build_flat_host(verts, tris,
-                                                     cluster_size)
+                                                     cluster_size, use_native)
     sel = np.flatnonzero(c_leaf >= 0)
     sel = sel[np.argsort(c_leaf[sel])]
     cl_lo, cl_hi, cl_tri = _repack_clusters(

@@ -14,11 +14,14 @@ values unchanged, so a config means the same thing in both packages. Both
 integrators are ported, BDPT (the default) with its visibility knobs
 ``tile_size_vis`` and ``vis_dropout``, and so are the three traversal
 engines (packets, the fine-BVH walk and brute force) and both triangle
-intersectors, each engine with each. ``check_supported`` rejects every
-value the port does not implement yet, among them any ``packet_engine`` but
-'auto' (the engine follows the tensors: the CUDA kernel on CUDA tensors,
-its plain version on CPU tensors) and any non-default value of the knobs
-that tune only the TPU kernels' schedule (``SCHEDULE_KNOBS``).
+intersectors, each engine with each, and every knob of the packet engine
+and the renderer: the flat, super and capped two-level culls, straggler
+rounds, windowed ray sorts and sample batches. ``check_supported`` rejects
+the JAX package's choices that pick a TPU engine or schedule and never
+change a result: any ``packet_engine`` but 'auto' (the engine follows the
+tensors: the CUDA kernel on CUDA tensors, its plain version on CPU
+tensors) and any non-default value of the TPU kernels' schedule knobs
+(``SCHEDULE_KNOBS``).
 """
 
 from __future__ import annotations
@@ -36,8 +39,9 @@ class RenderConfig:
     traversal: str = "packets"      # 'packets' | 'bvh' | 'brute'
     leaf_size: int = 4
     samples_per_call: int = 1       # progressive granularity (checkpoint unit)
-    sample_batch: int = 1           # samples whose bounce rays are traced as
-    #                                 one jointly sorted batch (not ported)
+    sample_batch: int = 1           # samples whose rays are traced as one
+    #                                 jointly sorted batch (the image is the
+    #                                 same at any value)
     # packet-traversal knobs (ops/packets.py)
     tile_size: int | None = None    # rays per packet tile; None = auto by
     #                                 cluster size (render/renderer.py)
@@ -54,20 +58,25 @@ class RenderConfig:
     #                                 may lie in a dropped cluster fall back
     #                                 to the fine BVH
     packet_sort: bool = True        # sort rays by octant + origin Morton code
-    packet_rounds: int = 1          # straggler rounds (one only)
-    packet_first_round: int = 2     # round-1 candidate budget (not ported)
+    packet_rounds: int = 1          # straggler rounds of pt_nee's traces:
+    #                                 early rounds cap the shortlist, the
+    #                                 rays a dropped candidate could beat go
+    #                                 on to the next round
+    packet_first_round: int = 2     # round-1 candidate budget per tile
+    #                                 (4x more each further round)
     packet_rounds_bdpt: int = 1     # straggler rounds of BDPT's traces
-    #                                 (one only)
     packet_engine: str = "auto"     # 'auto' only (module docstring)
     two_level_cull: bool | str | None = None  # False = flat cull;
     #                                 'super' = supercluster shortlists;
-    #                                 True = capped two-level cull (not
-    #                                 ported); None = auto (ops/packets.route)
+    #                                 True = capped two-level cull; None =
+    #                                 auto (ops/packets.route)
     super_factor: int = 8           # clusters per supercluster
-    super_slots: int = 16           # two-level expansion slots (not ported)
+    super_slots: int = 16           # superclusters kept per tile by the
+    #                                 capped two-level cull
     super_list: int = 255           # supers per 'super' shortlist
     sort_window: int = 0            # ray-sort window (0 = one global sort;
-    #                                 windows are not ported)
+    #                                 W sorts windows of W rays when
+    #                                 W % tile_size == 0 and W < rays)
     warm_start: int | None = None   # TPU kernel schedule (not ported)
     ray_groups: int | None = None   # TPU kernel schedule (not ported)
     intersector: str = "bw"         # triangle test of every engine and
@@ -110,36 +119,20 @@ class RenderConfig:
                                  f"one of {allowed}")
 
 
-# knobs of the JAX package's TPU kernel schedule, straggler rounds and
-# capped two-level cull; the port raises unless they keep their defaults
-SCHEDULE_KNOBS = ("packet_first_round", "super_slots", "warm_start",
-                  "ray_groups")
+# the Mosaic kernels' schedule knobs (JAX packets.py:307-312): they pick how
+# the TPU kernels run, never a result; the port raises unless they keep
+# their defaults
+SCHEDULE_KNOBS = ("warm_start", "ray_groups")
 
 
 def check_supported(cfg: RenderConfig) -> None:
     """Raise NotImplementedError, naming the knob, for a value the port
-    does not implement: the packet engine's capped two-level cull, straggler
-    rounds, sample batches, sort windows, the JAX package's engine choices
-    and the TPU schedule knobs. The scene-dependent limit
-    (the auto cull's capped two-level choice past K = 2048 clusters when
-    the scene does not allow super shortlists) is checked where K and C are
-    known (ops/packets.route)."""
-    if cfg.packet_rounds > 1:
-        raise NotImplementedError(
-            f"packet_rounds={cfg.packet_rounds}: one round only")
-    if cfg.packet_rounds_bdpt > 1:
-        raise NotImplementedError(
-            f"packet_rounds_bdpt={cfg.packet_rounds_bdpt}: one round only")
-    if cfg.sample_batch > 1:
-        raise NotImplementedError(
-            f"sample_batch={cfg.sample_batch}: one sample per trace only")
-    if cfg.sort_window > 0:
-        raise NotImplementedError(
-            f"sort_window={cfg.sort_window}: one global ray sort only")
-    if cfg.two_level_cull not in (None, False, "super"):
-        raise NotImplementedError(
-            f"two_level_cull={cfg.two_level_cull!r}: the capped two-level "
-            "cull is not ported (flat, 'super' or auto only)")
+    does not implement: the JAX package's engine choices (``packet_engine``)
+    and its TPU schedule knobs."""
+    if cfg.two_level_cull not in (None, False, True, "super"):
+        raise ValueError(
+            f"two_level_cull={cfg.two_level_cull!r}: expected None, False, "
+            "True or 'super'")
     if cfg.super_factor < 1:
         raise ValueError(f"super_factor={cfg.super_factor}: must be >= 1")
     if cfg.packet_engine != "auto":

@@ -107,7 +107,7 @@ def test_trace_packets_stream_route(scene, monkeypatch, masked,
               intersector=intersector)
     monkeypatch.setattr(tk1, "RESIDENT_VMEM_BUDGET", 1024)
     tpd = scene["tpd"]
-    assert tpk.route(tpd.num_clusters, tpd.cluster_size) == "stream"
+    assert tpk.route(tpd.num_clusters, tpd.cluster_size).kernel == "stream"
     calls = tk2.dense_intersect_plain.calls
     hit = tpk.trace_packets(tv(o), tv(d), tpd, fine_td=scene["ttd"],
                             mask=torch.from_numpy(mask), **kw)

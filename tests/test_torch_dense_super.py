@@ -163,8 +163,8 @@ def test_trace_packets_super_route(scene, super_list, intersector):
     kw = dict(tile_size=64, sort=True, two_level="super", super_factor=F,
               super_list=super_list, intersector=intersector)
     tpd = scene["tpd"]
-    assert tpk.route(tpd.num_clusters, tpd.cluster_size, "super", F) \
-        == "super"
+    assert tpk.route(tpd.num_clusters, tpd.cluster_size, "super",
+                     F).kernel == "super"
     calls = tk3.dense_intersect_super_plain.calls
     hit = tpk.trace_packets(tv(o), tv(d), tpd, fine_td=scene["ttd"],
                             mask=torch.from_numpy(mask), **kw)

@@ -158,44 +158,62 @@ def test_auto_engine_follows_the_device(setup):
 
 
 def test_unported_regimes_raise(setup):
-    """Past K = 2048 clusters without the resident layout, the auto cull
-    would take the capped two-level cull, which is not ported: it raises. A
-    scene past the resident kernel's budget (this C = 16 fixture: C is not
-    a multiple of 128) takes the stream route, K2, and is exact."""
+    """The regimes that raised before the capped two-level cull was ported
+    now trace exactly: past K = 2048 clusters without the resident layout,
+    the auto cull takes the capped two-level cull with K2, held against
+    brute force. A scene past the resident kernel's budget (this C = 16
+    fixture: C is not a multiple of 128) takes the stream route, K2, and
+    is exact."""
     o, d, mask = setup["inputs"]["primary"]
     pd = setup["tpd"]
-    many = pd._replace(cl_lo=pd.cl_lo.map(lambda c: c.repeat(200)),
-                       cl_hi=pd.cl_hi.map(lambda c: c.repeat(200)))
-    with pytest.raises(NotImplementedError, match="two_level_cull"):
-        tpk.trace_packets(_tv(o), _tv(d), many)
-    assert tpk.route(pd.num_clusters, pd.cluster_size) == "stream"
+    brute = ttrav.trace_bruteforce(_tv(o), _tv(d), setup["ts"])
+    # 200 copies of the clusters: K = 2,200 boxes over 11 clusters' blocks
+    K = pd.num_clusters * 200
+    sel = torch.arange(K) % pd.num_clusters
+    many = pd._replace(
+        cl_lo=pd.cl_lo.map(lambda c: c.repeat(200)),
+        cl_hi=pd.cl_hi.map(lambda c: c.repeat(200)),
+        **{f: getattr(pd, f).map(lambda c: torch.cat(
+            [c[:-1][sel], c[-1:]])) for f in ("v0", "e1", "e2")},
+        tri=torch.cat([pd.tri[:-1][sel], pd.tri[-1:]]))
+    assert tpk.route(K, pd.cluster_size) == ("two_level", "stream")
+    calls = tk2.dense_intersect_plain.calls
+    hit = tpk.trace_packets(_tv(o), _tv(d), many, fine_td=setup["ttd"],
+                            tile_size=64, max_clusters=8)
+    assert tk2.dense_intersect_plain.calls == calls + 1
+    np.testing.assert_array_equal(hit.tri.numpy(), brute.tri.numpy())
+    np.testing.assert_array_equal(hit.t.numpy(), brute.t.numpy())
+    assert tpk.route(pd.num_clusters, pd.cluster_size) == ("flat", "stream")
     calls = tk2.dense_intersect_plain.calls
     hit = tpk.trace_packets(_tv(o), _tv(d), pd, fine_td=setup["ttd"],
                             tile_size=64, max_clusters=8)
     assert tk2.dense_intersect_plain.calls == calls + 1
-    brute = ttrav.trace_bruteforce(_tv(o), _tv(d), setup["ts"])
     np.testing.assert_array_equal(hit.tri.numpy(), brute.tri.numpy())
     np.testing.assert_array_equal(hit.t.numpy(), brute.t.numpy())
 
 
-# (K, C, two_level) -> route; None: raises. The JAX package's host build of
-# the colonnade: subdiv 3 at adaptive C = 256 (K = 115), subdiv 6 at
-# adaptive C = 1024 (K = 1,816), subdiv 5 at C = 256 (K = 1,842) and
-# C = 128 (K = 3,699), subdiv 6 at C = 512 (K = 3,700)
+# (K, C, two_level) -> (cull, kernel). The JAX package's host build of the
+# colonnade: subdiv 3 at adaptive C = 256 (K = 115), subdiv 6 at adaptive
+# C = 1024 (K = 1,816), subdiv 5 at C = 256 (K = 1,842) and C = 128
+# (K = 3,699), subdiv 6 at C = 512 (K = 3,700). The ids are those the
+# cases had when the two-level rows raised (want None)
 ROUTES = [
-    ((115, 256, None), "resident"),
-    ((1816, 1024, None), "stream"),
-    ((1842, 256, "super"), "super"),
-    ((1842, 256, None), "resident"),
-    ((3699, 128, None), "super"),
-    ((3700, 512, None), None),
-    ((3700, 512, "super"), None),
-    ((100, 16, "super"), "stream"),
+    ((115, 256, None), ("flat", "resident")),
+    ((1816, 1024, None), ("flat", "stream")),
+    ((1842, 256, "super"), ("super", "super")),
+    ((1842, 256, None), ("flat", "resident")),
+    ((3699, 128, None), ("super", "super")),
+    ((3700, 512, None), ("two_level", "stream")),
+    ((3700, 512, "super"), ("two_level", "stream")),
+    ((100, 16, "super"), ("flat", "stream")),
 ]
+ROUTE_IDS = ["args0-resident", "args1-stream", "args2-super",
+             "args3-resident", "args4-super", "args5-None", "args6-None",
+             "args7-stream"]
 
 
 def _jax_route(K, C, two_level, F):
-    """The JAX package's kernel choice, from its conditions
+    """The JAX package's cull and kernel choice, from its conditions
     (cudapathtracer_tpu/ops/packets.py:531-557, :754-780)."""
     from cudapathtracer_tpu.ops.pallas.dense_resident import resident_fits
 
@@ -212,29 +230,24 @@ def _jax_route(K, C, two_level, F):
         else:
             two_level = True
     if use_super:
-        return "super"
-    if two_level and K > F:
-        return None                      # the capped two-level XLA cull
-    return "resident" if can_resident else "stream"
+        return ("super", "super")
+    return ("two_level" if two_level and K > F else "flat",
+            "resident" if can_resident else "stream")
 
 
-@pytest.mark.parametrize("args,want", ROUTES)
+@pytest.mark.parametrize("args,want", ROUTES, ids=ROUTE_IDS)
 def test_route_matches_jax(args, want):
     assert _jax_route(*args, 8) == want
-    if want is None:
-        with pytest.raises(NotImplementedError, match="two_level_cull"):
-            tpk.route(*args, 8)
-    else:
-        assert tpk.route(*args, 8) == want
+    assert tpk.route(*args, 8) == want
 
 
 def test_route_follows_the_budget(monkeypatch):
     """route reads the port's copy of the resident budget at call time, as
     the JAX package reads its own."""
-    assert tpk.route(115, 256) == "resident"
+    assert tpk.route(115, 256).kernel == "resident"
     monkeypatch.setattr(tk1, "RESIDENT_VMEM_BUDGET", 1024)
-    assert tpk.route(115, 256) == "stream"
-    assert tpk.route(115, 256, "super", 8) == "stream"
+    assert tpk.route(115, 256).kernel == "stream"
+    assert tpk.route(115, 256, "super", 8).kernel == "stream"
 
 
 # ---- the caller's cap (t_cap) and visibility-only queries (vis_band) -----
@@ -385,7 +398,7 @@ def test_vis_band_matches_jax_kernels(capped, route, monkeypatch):
         monkeypatch.setattr(tk1, "RESIDENT_VMEM_BUDGET", 1024)
     _, tpd, ttd, _ = capped["scenes"]["c128"]
     assert tpk.route(tpd.num_clusters, tpd.cluster_size,
-                     "super" if route == "super" else None, 2) == route
+                     "super" if route == "super" else None, 2).kernel == route
     hv = tpk.trace_packets(capped["pos"], capped["dirn"], tpd, fine_td=ttd,
                            tile_size=64, sort=True, t_cap=capped["vcap"],
                            vis_band=capped["band"], **_kw(route == "super"))
@@ -412,7 +425,7 @@ def test_mt_resident_route_matches_jax(capped, engine):
     ts_, tpd, ttd, sc = capped["scenes"]["c128"]
     o, d = capped["o"], capped["d"]
     kw = dict(tile_size=64, max_clusters=2, sort=True, intersector="mt")
-    assert tpk.route(tpd.num_clusters, tpd.cluster_size) == "resident"
+    assert tpk.route(tpd.num_clusters, tpd.cluster_size).kernel == "resident"
     calls = tk1.dense_intersect_resident_plain.calls
     hit = tpk.trace_packets(o, d, tpd, fine_td=ttd, **kw)
     assert tk1.dense_intersect_resident_plain.calls == calls + 1

@@ -46,20 +46,14 @@ def test_render_config_defaults_field_by_field():
 
 # each case keeps the id it had while the list also held the knobs that
 # are ported since (integrator="bdpt", vis_dropout, tile_size_vis; kw7
-# intersector="mt" and kw8 traversal="bvh" moved to the accepted list)
+# intersector="mt" and kw8 traversal="bvh", then kw1-5, kw12 and kw14: the
+# two-level cull, rounds, sample batches and sort windows, moved to the
+# accepted list); what is left picks a TPU engine or schedule
 @pytest.mark.parametrize("kw,knob", [
     pytest.param(kw, knob, id=f"kw{i}-{knob}") for i, (kw, knob) in (
-        (1, (dict(packet_rounds=2), "packet_rounds")),
-        (2, (dict(sample_batch=2), "sample_batch")),
-        (3, (dict(sort_window=256), "sort_window")),
-        (4, (dict(two_level_cull=True), "two_level_cull")),
-        (5, (dict(two_level_cull="super", super_slots=4), "super_slots")),
         (9, (dict(packet_engine="xla"), "packet_engine")),
         (10, (dict(warm_start=2), "warm_start")),
         (11, (dict(ray_groups=2), "ray_groups")),
-        (12, (dict(super_factor=4, super_slots=8), "super_slots")),
-        (14, (dict(integrator="bdpt", packet_rounds_bdpt=2),
-              "packet_rounds_bdpt")),
     )
 ])
 def test_unsupported_knobs_raise(kw, knob):
@@ -80,10 +74,19 @@ def test_unsupported_knobs_raise(kw, knob):
     ("traversal-brute", dict(traversal="brute")),
     ("bdpt-brute-mt", dict(integrator="bdpt", traversal="brute",
                            intersector="mt")),
+    ("kw1-packet_rounds", dict(packet_rounds=2)),
+    ("kw2-sample_batch", dict(sample_batch=2)),
+    ("kw3-sort_window", dict(sort_window=256)),
+    ("kw4-two_level_cull", dict(two_level_cull=True)),
+    ("kw5-super_slots", dict(two_level_cull="super", super_slots=4)),
+    ("kw12-super_slots", dict(super_factor=4, super_slots=8)),
+    ("kw14-packet_rounds_bdpt", dict(integrator="bdpt",
+                                     packet_rounds_bdpt=2)),
 )])
 def test_super_cull_knobs_accepted(kw):
-    """The super cull and its knobs are ported (only super_slots, which the
-    capped two-level cull alone reads, stays at its default), and so are
+    """The super cull and its knobs are ported, and so are the capped
+    two-level cull (two_level_cull=True, super_slots), straggler rounds
+    (packet_rounds, packet_rounds_bdpt), sample batches and sort windows,
     BDPT and its visibility knobs, the Moller-Trumbore intersector and the
     fine-BVH and brute-force engines."""
     check_supported(T.RenderConfig(**{"integrator": "pt_nee", **kw}))
