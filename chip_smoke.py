@@ -154,6 +154,24 @@ them:
    (c) The headline at its default, sample_batch 2, packet_rounds 2 with
    packet_first_round 2 and sort_window KNOB_SORT_WINDOW in turns, the
    same checks and numbers.
+16. entry (K1): the port's graft entry points
+   (cudapathtracer_tpu_torch/entry.py) and the quirk flags. (a)
+   ``entry()``'s forward step (cornell_with_sphere_mesh(subdiv=2), 356
+   triangles, 128^2 pt_nee, 1 spp): the resident route, one warm run and
+   ENTRY_RUNS runs timed by CUDA events (median ms, Mrays/s), K1 alone
+   launching; the image finite and lit, against ``entry("cpu")``'s under
+   the golden rule, its worst relative gap; K1 against its plain version
+   on the step's primary and bounce batches as step 5 checks a batch. (b)
+   The dry run (``dryrun_ranks``, ``dryrun_loss``): one rank over NCCL,
+   two gloo ranks sharing this card and two on the CPU; finite losses
+   within DRYRUN_RTOL of each other, K1 alone launching on every card
+   rank. (c) Each of QUIRK_CASES (every quirk flag with each integrator
+   that reads it) rendered at QUIRK_SIZE^2, QUIRK_SPP spp on the card,
+   K1 alone, against the same render on the CPU (QUIRK_WORKERS worker
+   processes of one torch thread, started after (a)'s timing) under the
+   golden rule; a flag must change the CPU image, and the card's in the
+   same pixels.
+   The phase's wall is printed.
 
 Each render path runs with every kernel's launch count and every plain
 version's call count set to 0 just before its timed windows and read just
@@ -184,8 +202,11 @@ both worlds' Mrays/s and the split's worst/mean figures, and dense/twolevel
 with K2's numbers on the two-level bounce batch, its launches in the
 two-level windows and per sample, the fallback's rays, steps and ms per
 sample, both culls' trace ms and Mrays/s, and the sample_batch, rounds
-and window variants' Mrays/s and K1 launches per sample), the last line
-the device record.
+and window variants' Mrays/s and K1 launches per sample, and
+dense_resident/entry with K1's numbers on the entry's bounce batch, its
+launches in the timed entry runs, the entry's ms and Mrays/s, the dry
+runs' losses and K1 launches per rank and each quirk case's gaps), the
+last line the device record.
 
 Run: python3 chip_smoke.py
 """
@@ -196,12 +217,13 @@ import contextlib
 import dataclasses
 import io
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -276,6 +298,28 @@ TWOLEVEL_SPP = 1
 TWOLEVEL_WINDOWS = 2
 KNOB_WINDOWS = 2
 KNOB_SORT_WINDOW = 65536
+# the entry phase (16): the entry's timed runs; the quirk flags' renders of
+# cornell_with_sphere_mesh(subdiv=2) (size, spp, seed), each case with the
+# integrators that read its flag, the default of each first; the CPU
+# references' worker processes (one torch thread each); the dry runs'
+# agreement
+ENTRY_RUNS = 5
+QUIRK_SIZE = 64
+QUIRK_SPP = 4
+QUIRK_SEED = 9
+QUIRK_CASES = (
+    ("pt_nee", {}),
+    ("pt_nee", {"orthonormal_frame": True}),
+    ("pt_nee", {"light_normal_mode": "true"}),
+    ("pt_nee", {"branch_pdf_correction": True}),
+    ("pt_nee", {"compensated_accum": False}),
+    ("pt_nee", {"jitter": True}),
+    ("bdpt", {}),
+    ("bdpt", {"orthonormal_frame": True}),
+    ("bdpt", {"compensated_accum": False}),
+)
+QUIRK_WORKERS = 5
+DRYRUN_RTOL = 1e-5
 # one H100 SXM (its data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -313,6 +357,17 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def cuda_ms_once(fn):
+    """(result, ms) of one run of ``fn()`` between two CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def host_ms(fn):
@@ -1901,6 +1956,240 @@ def twolevel_phase(dev, kernels, check_batch, base_key, size=HEADLINE_SIZE,
     return out, extra, culls["two_level"]["launches"]
 
 
+def quirk_label(integrator, flags):
+    return integrator + "".join(f"/{k}={v}" for k, v in flags.items())
+
+
+def quirk_render(dev, integrator, flags, size=QUIRK_SIZE, spp=QUIRK_SPP,
+                 seed=QUIRK_SEED):
+    """One quirk case: ``cpt.render`` (through ``render_batch``) of
+    cornell_with_sphere_mesh(subdiv=2) with ``flags`` set. -> (state, its
+    finalized (H, W, 3) u8 image)."""
+    import cudapathtracer_tpu_torch as cpt
+    from cudapathtracer_tpu_torch.models import procedural
+
+    scene = procedural.to_scene(procedural.cornell_with_sphere_mesh(subdiv=2),
+                                dev)
+    cfg = cpt.RenderConfig(width=size, height=size, spp=spp,
+                           integrator=integrator, samples_per_call=spp,
+                           **flags)
+    st = cpt.render(scene, cpt.make_camera(width=size, height=size,
+                                           device=dev), cfg, seed=seed,
+                    device=dev)
+    return st, cpt.finalize_image(st, cfg)
+
+
+def quirk_cpu_render(integrator, flags, size, spp):
+    """``quirk_render`` on the CPU with one torch thread, in a worker
+    process of phase 16. -> (accumulators (3, R), u8 image)."""
+    torch.set_num_threads(1)
+    st, img = quirk_render("cpu", integrator, flags, size, spp)
+    return np.stack([c.numpy() for c in st.img]), img
+
+
+def worst_rel(got, want):
+    """Largest |got - want| / |want| over the values with want != 0, and
+    the count of values past rtol 3e-6 (the per-pixel tests' rtol)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    gap = np.abs(got - want)
+    nz = want != 0
+    rel = float((gap[nz] / np.abs(want[nz])).max()) if nz.any() else 0.0
+    return rel, int((gap > 1e-7 + 3e-6 * np.abs(want)).sum())
+
+
+def entry_phase(dev, kernels, check_batch, runs=ENTRY_RUNS,
+                quirk_size=QUIRK_SIZE, quirk_spp=QUIRK_SPP,
+                workers=QUIRK_WORKERS):
+    """Phase 16: the graft entry points of the port
+    (``cudapathtracer_tpu_torch/entry.py``) and the quirk flags. (a)
+    ``entry()`` on the card: one warm run, ``runs`` timed by CUDA events
+    (median ms, Mrays/s), K1 alone; the image against ``entry("cpu")``'s
+    under ``image_rule``; K1 against its plain version on the entry's
+    primary and bounce batches. (b) The dry run: one rank over NCCL, two
+    gloo ranks sharing this card and two on the CPU; finite losses within
+    DRYRUN_RTOL of each other, K1 launched on every card rank and nothing
+    else. (c) Each QUIRK_CASES render on the card against the same case on
+    the CPU (worker processes, started after (a)'s timing) under
+    ``image_rule``; a flag must change the CPU image, and the card's in
+    the same pixels; K1 alone. -> (K1's numbers on the entry's bounce
+    batch, extra keys, K1's launches in the timed entry runs)."""
+    import cudapathtracer_tpu_torch as cpt
+    from cudapathtracer_tpu_torch import entry as E
+    from cudapathtracer_tpu_torch.ops import packets
+    from cudapathtracer_tpu_torch.render import renderer
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    extra = {}
+
+    # ---- (a) entry(): the forward step, K1 ---------------------------------
+    fn, args = E.entry(device=dev)
+    scene, bvh, cam, base_key, state = args
+    cfg = E.ENTRY_CFG
+    K, C = bvh.cl_tri.shape
+    route = packets.route(K, C, cfg.two_level_cull, cfg.super_factor)
+    P = renderer.resolve_tile_size(cfg, scene.num_tris)
+    print(f"entry: scene tris={scene.num_tris} clusters={K} C={C} P={P} "
+          f"route={route.cull}/{route.kernel}")
+    if route.kernel != "resident":
+        raise AssertionError(f"entry: took the {route.kernel} route")
+    fn(*args)
+    sync()
+    reset_counts(kernels)
+    ms = []
+    for _ in range(runs):
+        st, t = cuda_ms_once(lambda: fn(*args))
+        ms.append(t)
+    launches, _ = path_counts("entry", kernels, "k1")
+    med = float(np.median(ms))
+    rays = cfg.num_pixels * cfg.spp * (cfg.num_bounces + 1)
+    img = cpt.finalize_image(st, cfg)
+    finite = all(bool(torch.isfinite(c).all()) for c in st.img)
+    print(f"entry: {cfg.width}x{cfg.height} spp={cfg.spp} "
+          f"bounces={cfg.num_bounces} runs={runs} run_ms="
+          f"{[round(m, 3) for m in ms]} median_ms={med:.3f} "
+          f"mrays_per_s={rays / med / 1e3:.3f} n={st.n} finite={finite} "
+          f"k1_launches={launches['k1']} (per run "
+          f"{launches['k1'] / runs:.2f}) other_launches="
+          f"{sum(v for n, v in launches.items() if n != 'k1')}")
+    if st.n != 1 or not finite or img.max() == 0:
+        raise AssertionError("entry: the image is not one finite, lit "
+                             "sample")
+    extra.update(entry_ms=med, entry_run_ms=ms,
+                 entry_mrays_per_s=rays / med / 1e3)
+
+    # K1 against its plain version on the entry's batches
+    prep = renderer.make_packet_prep(scene, bvh)
+    trace_fn = renderer.make_trace_fn(scene, cfg, bvh, prep=prep)
+    gaps = []
+    for bname, batch in record_batches(scene, trace_fn, cam, cfg,
+                                       base_key).items():
+        res = check_batch(f"entry/{bname}", "k1", batch, scene, prep, cfg,
+                          P, None, full_plain=True)
+        gaps.append(res["max_abs"])
+    res["max_abs"] = max(gaps)
+
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        # BDPT's CPU renders take longest: first
+        order = sorted(QUIRK_CASES, key=lambda c: c[0] != "bdpt")
+        futs = {quirk_label(*c): pool.submit(quirk_cpu_render, *c,
+                                             quirk_size, quirk_spp)
+                for c in order}
+
+        # the card's image against entry("cpu")'s, here, one torch thread
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            t0 = time.perf_counter()
+            cfn, cargs = E.entry(device="cpu")
+            cst = cfn(*cargs)
+            cpu_s = time.perf_counter() - t0
+        finally:
+            torch.set_num_threads(threads)
+        frac = image_rule("entry: card vs cpu", img,
+                          cpt.finalize_image(cst, cfg))
+        rel, off = worst_rel(np.stack([c.cpu().numpy() for c in st.img]),
+                             np.stack([c.numpy() for c in cst.img]))
+        print(f"entry: card_vs_cpu channels_off_by_more_than_2={frac:.4%} "
+              f"(limit 0.5%) worst_rel_gap={rel:.3g} values_past_rtol_3e-6="
+              f"{off} of {3 * cfg.num_pixels} cpu_s={cpu_s:.2f}")
+        extra.update(entry_card_vs_cpu_worst_rel=rel,
+                     entry_card_vs_cpu_channels_off=frac)
+
+        # ---- (b) the dry run: NCCL, two gloo ranks on this card, the CPU --
+        with ThreadPoolExecutor(1) as ex:
+            cpu_ranks = ex.submit(E.dryrun_ranks, 2, "cpu")
+            t0 = time.perf_counter()
+            one = E.dryrun_ranks(1, device=dev.type)
+            one_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            two = E.dryrun_ranks(2, device=str(dev), backend="gloo")
+            two_s = time.perf_counter() - t0
+            cpu2 = cpu_ranks.result()
+        losses = {}
+        for name, ranks, wall in (("nccl1" if dev.type == "cuda" else
+                                   "gloo1", one, one_s),
+                                  ("gloo2_card", two, two_s),
+                                  ("gloo2_cpu", cpu2, None)):
+            losses[name] = E.dryrun_loss(len(ranks), ranks)
+            for r, out in enumerate(ranks):
+                counts = {k: int(out[k]) for k in ("k1_launches",
+                                                   "k2_launches",
+                                                   "k3_launches",
+                                                   "plain_calls")}
+                print(f"dryrun[{name}]: rank={r} " + " ".join(
+                    f"{k}={v}" for k, v in counts.items())
+                    + ("" if wall is None else f" wall_s={wall:.2f}"))
+                on_card = dev.type == "cuda" and name != "gloo2_cpu"
+                ran = counts["k1_launches" if on_card else "plain_calls"]
+                if ran <= 0 or (on_card and (counts["plain_calls"]
+                                             or counts["k2_launches"]
+                                             or counts["k3_launches"])):
+                    raise AssertionError(f"dryrun[{name}]: rank {r} did not "
+                                         "run through K1 alone")
+            extra[f"dryrun_{name}_k1_launches"] = [
+                int(out["k1_launches"]) for out in ranks]
+        ref = losses["gloo2_cpu"]
+        worst = max(abs(v - ref) / abs(ref) for v in losses.values())
+        print("dryrun: losses " + " ".join(
+            f"{k}={v:.6f}" for k, v in losses.items())
+            + f" worst_rel_gap={worst:.3g} (limit {DRYRUN_RTOL})")
+        if worst > DRYRUN_RTOL:
+            raise AssertionError("dryrun: the losses disagree")
+        extra.update({f"dryrun_loss_{k}": v for k, v in losses.items()})
+
+        # ---- (c) the quirk flags on the card against the CPU --------------
+        reset_counts(kernels)
+        card = {}
+        for case in QUIRK_CASES:
+            card[quirk_label(*case)] = quirk_render(dev, *case, quirk_size,
+                                                    quirk_spp)
+        sync()
+        qlaunches, _ = path_counts("quirks", kernels, "k1")
+        cpu = {k: f.result() for k, f in futs.items()}
+    quirks = {}
+    for integ, flags in QUIRK_CASES:
+        label = quirk_label(integ, flags)
+        cst, cimg = card[label]
+        acc, pimg = cpu[label]
+        got = np.stack([c.cpu().numpy() for c in cst.img])
+        finite = bool(np.isfinite(got).all())
+        frac = image_rule(f"quirk[{label}]: card vs cpu", cimg, pimg)
+        rel, off = worst_rel(got, acc)
+        line = (f"quirk[{label}]: {quirk_size}x{quirk_size} spp={quirk_spp} "
+                f"finite={finite} channels_off_by_more_than_2={frac:.4%} "
+                f"(limit 0.5%) worst_rel_gap={rel:.3g} "
+                f"values_past_rtol_3e-6={off} of {got.size}")
+        q = dict(channels_off=frac, worst_rel=rel)
+        if flags:
+            base = quirk_label(integ, {})
+            m_card = (got != np.stack([
+                c.cpu().numpy() for c in card[base][0].img])).any(0)
+            m_cpu = (acc != cpu[base][0]).any(0)
+            d_card, d_cpu = int(m_card.sum()), int(m_cpu.sum())
+            same = bool(np.array_equal(m_card, m_cpu))
+            line += (f" pixels_differing_from_default: card={d_card} "
+                     f"cpu={d_cpu} same_pixels={same}")
+            q.update(differing_card=d_card, differing_cpu=d_cpu)
+            if d_cpu == 0 or not same:
+                raise AssertionError(f"quirk[{label}]: the flag changes no "
+                                     "pixel, or other pixels on the card "
+                                     "than on the CPU")
+        print(line)
+        if not finite or got.max() <= 0:
+            raise AssertionError(f"quirk[{label}]: not finite and lit")
+        quirks[label] = q
+    print(f"quirks: cases={len(QUIRK_CASES)} k1_launches={qlaunches['k1']} "
+          f"other_launches="
+          f"{sum(v for n, v in qlaunches.items() if n != 'k1')}")
+    extra.update(quirks=quirks, quirk_k1_launches=qlaunches["k1"])
+    wall = time.perf_counter() - t_phase
+    print(f"entry: phase_wall_s={wall:.1f}")
+    extra["phase_wall_s"] = wall
+    return res, extra, launches["k1"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2154,7 +2443,8 @@ def main():
               f"{part.ids.shape[0]} tiles) sort_cull_topk_ms={sl_ms:.3f} "
               f"tests={tests} clusters_touched={touched} bytes={nbytes} "
               f"ops_per_test={OPS_PER_TEST[isect]} "
-              f"bound_ms={bnd[0]:.4f} bound_by={bnd[1]}")
+              f"bound_ms={bnd[0]:.4f} bound_by={bnd[1]} "
+              f"share_of_bound={bnd[0] / ms:.1%}")
         # the counting instances; K1 counts a cluster once per block of up
         # to 128 rays that folds it, K3 per member
         k1_group = k1.k1_group(P)
@@ -2511,6 +2801,14 @@ def main():
     entry = kernel_entry("dense/twolevel", "dense.cu",
                          "cudapathtracer_tpu/ops/pallas/dense.py:343",
                          launches, res)
+    entry.update(extra)
+    entries.append(entry)
+
+    # ---- 16. entry: the graft entry points and the quirk flags -------------
+    torch.cuda.empty_cache()
+    res, extra, launches = entry_phase(dev, kernels, check_batch)
+    entry = kernel_entry("dense_resident/entry", "dense_resident.cu",
+                         resident_src, launches, res)
     entry.update(extra)
     entries.append(entry)
 

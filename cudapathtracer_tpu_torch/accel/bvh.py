@@ -240,7 +240,7 @@ def build_flat_host(verts, tri_indices, leaf_size: int = 4):
     return (*_flatten_threaded(root, T, leaf_size), root.depth)
 
 
-def build_bvh(verts, tri_indices, leaf_size: int = 4, device="cpu"):
+def build_bvh(verts, tri_indices, leaf_size: int = 4, device="cuda"):
     """The numpy twin's FlatBVH on ``device`` and its BVHMeta (JAX
     accel/bvh.py:build_bvh)."""
     lo, hi, skip, leaf_id, leaf_tri, depth = build_flat_host(
@@ -253,6 +253,11 @@ def build_bvh(verts, tri_indices, leaf_size: int = 4, device="cpu"):
                    *(t(hi[:, i]) for i in range(3)), node_skip=t(skip),
                    node_leaf=t(leaf_id), leaf_tri=t(leaf_tri))
     return flat, BVHMeta(depth=depth, num_tris=int(np.shape(tri_indices)[0]))
+
+
+def as_fine(bvh) -> FlatBVH:
+    """Accept either an Accel bundle or a bare FlatBVH."""
+    return bvh.fine if isinstance(bvh, Accel) else bvh
 
 
 def _host(a):

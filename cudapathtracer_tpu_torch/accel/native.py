@@ -87,6 +87,15 @@ def build_bvh_native(verts, tri_indices, leaf_size: int = 4):
     return arrays, depth
 
 
+def native_available() -> bool:
+    """Whether the BVH build library compiles (g++) and loads here."""
+    try:
+        load()
+        return True
+    except (OSError, RuntimeError):
+        return False
+
+
 @functools.cache
 def load_obj_parser():
     """Build (when stale) and load the OBJ/MTL parser library."""

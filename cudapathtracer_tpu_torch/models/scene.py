@@ -135,6 +135,13 @@ def make_scene(verts, tri_indices, tri_mats, albedo, emission, *,
     )
 
 
+def host_geometry(scene: Scene):
+    """(verts (V, 3) f32, tris (T, 3) i32) host arrays of the scene. The
+    JAX package keeps them in a cache keyed by the device array and gives
+    None for a scene it did not build; a port Scene carries them."""
+    return scene.host_verts, scene.host_tris
+
+
 def merge_scenes(a: Scene, b: Scene) -> Scene:
     """Concatenate two scenes on one device (the reference appends
     successive loadOBJ calls into one global SoA, modelLoader.h:43-47; JAX

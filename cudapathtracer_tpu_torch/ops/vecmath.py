@@ -185,6 +185,10 @@ def sin(x):
     return torch.sin(x.double()).float()
 
 
+def length_sq(a: Vec3):
+    return dot(a, a)
+
+
 def length(a: Vec3):
     return sqrt(dot(a, a))
 
@@ -227,6 +231,16 @@ def safe_length(a: Vec3, eps: float = 0.0):
 
 def max_component(a: Vec3):
     return torch.maximum(a.x, torch.maximum(a.y, a.z))
+
+
+def vmin(a: Vec3, b: Vec3) -> Vec3:
+    return Vec3(torch.minimum(a.x, b.x), torch.minimum(a.y, b.y),
+                torch.minimum(a.z, b.z))
+
+
+def vmax(a: Vec3, b: Vec3) -> Vec3:
+    return Vec3(torch.maximum(a.x, b.x), torch.maximum(a.y, b.y),
+                torch.maximum(a.z, b.z))
 
 
 def where(mask, a: Vec3, b: Vec3) -> Vec3:

@@ -9,6 +9,8 @@ ranks on one card start this way. A rank is
 
     python -m cudapathtracer_tpu_torch.parallel.launch <file> <function> \\
         <init_method> <world> <rank> <out_dir> <device> <backend> <json args>
+
+with an empty <backend> for the device's default.
 """
 
 from __future__ import annotations
@@ -35,11 +37,13 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def start_ranks(file, function, world, out_dir, device="cpu",
-                backend="gloo", args=(), env=None, timeout=300):
+def start_ranks(file, function, world, out_dir, device="cuda",
+                backend=None, args=(), env=None, timeout=300):
     """Start ``world`` ranks, each running ``function`` of ``file`` on
-    ``device`` over ``backend`` with the JSON-able ``args``; ``env``: more
-    environment for the ranks. The ranks' output goes to this process's.
+    ``device`` over ``backend`` (None: ``initialize_distributed``'s choice,
+    NCCL on a card and gloo on the CPU) with the JSON-able ``args``;
+    ``env``: more environment for the ranks. The ranks' output goes to
+    this process's.
     -> ``wait()``, which waits for them, kills every rank and raises if one
     fails or the ranks outlast ``timeout`` seconds, and otherwise returns
     each rank's dict of arrays in rank order."""
@@ -49,7 +53,7 @@ def start_ranks(file, function, world, out_dir, device="cpu",
         p for p in (ROOT, env.get("PYTHONPATH")) if p)
     procs = [subprocess.Popen(
         [sys.executable, "-m", __name__, os.path.abspath(file), function,
-         init, str(world), str(r), str(out_dir), str(device), backend,
+         init, str(world), str(r), str(out_dir), str(device), backend or "",
          json.dumps(list(args))], env=env) for r in range(world)]
 
     def wait():
@@ -86,7 +90,7 @@ def main(argv=None):
         os.path.splitext(os.path.basename(file))[0], file)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    mesh = initialize_distributed(backend=backend, init_method=init,
+    mesh = initialize_distributed(backend=backend or None, init_method=init,
                                   world_size=int(world), rank=int(rank),
                                   device=device, timeout=RANK_TIMEOUT)
     try:

@@ -69,7 +69,11 @@ def _accum_update(state: AccumState, sample: Vec3,
         keep = float((nf - np.float32(1.0)) / nf)
         img = state.img * keep + sample * float(np.float32(1.0) / nf)
         return AccumState(img=img, comp=state.comp, n=n)
-    nf = float(nf)
+    # a 0-d tensor on the state's device: torch divides a CUDA tensor by a
+    # Python number as a product with its reciprocal, which rounds twice
+    # where n is not a power of two; the JAX package divides
+    nf = torch.full((), float(nf), dtype=torch.float32,
+                    device=state.img.x.device)
 
     def kahan(mean, comp, s):
         delta = (s - mean) / nf

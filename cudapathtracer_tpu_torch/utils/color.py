@@ -17,6 +17,11 @@ def tonemap_reinhard(c: Vec3) -> Vec3:
     return Vec3(c.x / (c.x + 1.0), c.y / (c.y + 1.0), c.z / (c.z + 1.0))
 
 
+def tonemap_reinhard_inverse(c: Vec3) -> Vec3:
+    """color.h:63-66 ``denormalized``: c / (1 - c)."""
+    return Vec3(c.x / (1.0 - c.x), c.y / (1.0 - c.y), c.z / (1.0 - c.z))
+
+
 def gamma_correct(c: Vec3, a: float) -> Vec3:
     """color.h:68-71 ``gammaCorrect``: c ** a (a = 1/2.2 at the call site)."""
     return Vec3(torch.pow(c.x, a), torch.pow(c.y, a), torch.pow(c.z, a))

@@ -43,6 +43,16 @@ def morton_decode(index):
     return _compact1by1(index), _compact1by1(index >> 1)
 
 
+def scanline_decode(index, width):
+    """Row-major index -> (x, y) pixel coords."""
+    return index % width, index // width
+
+
+def scanline_encode(x, y, width):
+    """(x, y) pixel coords -> row-major index."""
+    return y * width + x
+
+
 def morton_to_scanline_perm(width, height, device):
     """Permutation p with image_scanline[y*W+x] = image_morton[p[y*W+x]]."""
     ys, xs = torch.meshgrid(torch.arange(height, device=device),

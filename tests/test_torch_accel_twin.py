@@ -57,7 +57,7 @@ def test_twin_matches_jax_twin(name, kw, leaf):
     """The port's twin builds the JAX package's twin's tree array for
     array, its meta included, and it validates."""
     _, verts, tris = _geometry(name, kw)
-    tflat, tmeta = tbvh.build_bvh(verts, tris, leaf)
+    tflat, tmeta = tbvh.build_bvh(verts, tris, leaf, device="cpu")
     jflat, jmeta = jbvh.build_bvh(verts, tris, leaf)
     assert tuple(tmeta) == tuple(jmeta)
     for f in jbvh.FlatBVH._fields:
@@ -89,7 +89,7 @@ def test_validate_catches_a_broken_tree():
     """validate raises for a triangle left out, a skip link pointing back
     and a duplicated leaf id."""
     _, verts, tris = _geometry("cornell_box", {})
-    flat, meta = tbvh.build_bvh(verts, tris, 4)
+    flat, meta = tbvh.build_bvh(verts, tris, 4, device="cpu")
     lt = flat.leaf_tri.clone()
     lt[0, 0] = meta.num_tris
     skip = flat.node_skip.clone()

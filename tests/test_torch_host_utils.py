@@ -1,5 +1,9 @@
 """The port's host utilities held against the JAX package's on the CPU:
-utils/png.py (byte for byte), utils/keeper.py (on synthetic images),
+the small helpers (utils/color.py's inverse tonemap, utils/morton.py's
+scanline order, ops/vecmath.py's ``length_sq``/``vmin``/``vmax``,
+accel/bvh.py's ``as_fine``, accel/native.py's ``native_available``,
+models/scene.py's ``host_geometry``), utils/png.py (byte for byte),
+utils/keeper.py (on synthetic images),
 utils/profiling.py (the reference's Mrays/s accounting, the slow-lap
 watchdog, the out.csv bytes, device_health and HealthWatchdog, as
 tests/test_profiling.py checks them, and profile_trace), render's
@@ -11,12 +15,30 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
+from cudapathtracer_tpu.accel import bvh as jbvh
+from cudapathtracer_tpu.accel import native as jnative
+from cudapathtracer_tpu.models import procedural as jproc
+from cudapathtracer_tpu.models import scene as jscene
+from cudapathtracer_tpu.ops import vecmath as jvec
+from cudapathtracer_tpu.render.renderer import build_bvh_for_scene as jbuild
+from cudapathtracer_tpu.utils import color as jcolor
 from cudapathtracer_tpu.utils import keeper as jkeeper
+from cudapathtracer_tpu.utils import morton as jmorton
 from cudapathtracer_tpu.utils import png as jpng
 from cudapathtracer_tpu.utils import profiling as jprof
 
 import cudapathtracer_tpu_torch as T
+from cudapathtracer_tpu_torch.accel import bvh as tbvh
+from cudapathtracer_tpu_torch.accel import native as tnative
 from cudapathtracer_tpu_torch.models import procedural as tproc
+from cudapathtracer_tpu_torch.models import scene as tscene
+from cudapathtracer_tpu_torch.ops import vecmath as tvec
+from cudapathtracer_tpu_torch.render.renderer import build_bvh_for_scene
+from cudapathtracer_tpu_torch.utils import color as tcolor
+from cudapathtracer_tpu_torch.utils import morton as tmorton
 from cudapathtracer_tpu_torch.utils import keeper as tkeeper
 from cudapathtracer_tpu_torch.utils import png as tpng
 from cudapathtracer_tpu_torch.utils import profiling as tprof
@@ -29,6 +51,85 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def _vec3s(n, seed, scale=1.0):
+    """Two random Vec3 of n values, as numpy arrays (3, n)."""
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal((3, n)) * scale).astype(np.float32)
+            for _ in range(2)]
+
+
+def test_tonemap_reinhard_inverse_matches_jax():
+    """color.h's ``denormalized`` after ``normalized``, both packages: the
+    same bits, and the round trip within float32 rounding."""
+    c = np.random.default_rng(3).uniform(0, 4, (3, 4096)).astype(np.float32)
+    got = tcolor.tonemap_reinhard_inverse(tcolor.tonemap_reinhard(
+        tvec.Vec3(*map(torch.from_numpy, c))))
+    want = jcolor.tonemap_reinhard_inverse(jcolor.tonemap_reinhard(
+        jvec.Vec3(*map(jnp.asarray, c))))
+    for a, b, x in zip(got, want, c):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        np.testing.assert_allclose(a.numpy(), x, rtol=2e-6, atol=1e-7)
+
+
+def test_scanline_round_trip_matches_jax():
+    """Row-major order on 64 x 64: decode equal to the JAX package's, and
+    encode inverts it."""
+    W = 64
+    idx = torch.arange(W * W)
+    x, y = tmorton.scanline_decode(idx, W)
+    jx, jy = jmorton.scanline_decode(jnp.arange(W * W), W)
+    np.testing.assert_array_equal(x.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(y.numpy(), np.asarray(jy))
+    assert torch.equal(tmorton.scanline_encode(x, y, W), idx)
+    np.testing.assert_array_equal(np.asarray(jmorton.scanline_encode(
+        jx, jy, W)), idx.numpy())
+
+
+def test_vecmath_helpers_match_jax():
+    """``length_sq`` (the fused dot XLA forms, so against the jitted JAX
+    function), ``vmin`` and ``vmax``: the same bits."""
+    a, b = _vec3s(10000, 5, scale=3.0)
+    ta, tb = (tvec.Vec3(*map(torch.from_numpy, v)) for v in (a, b))
+    ja, jb = (jvec.Vec3(*map(jnp.asarray, v)) for v in (a, b))
+    np.testing.assert_array_equal(tvec.length_sq(ta).numpy(),
+                                  np.asarray(jax.jit(jvec.length_sq)(ja)))
+    for tf, jf in ((tvec.vmin, jvec.vmin), (tvec.vmax, jvec.vmax)):
+        for x, y in zip(tf(ta, tb), jf(ja, jb)):
+            np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+
+
+def test_as_fine_and_host_geometry_match_jax():
+    """``as_fine`` takes the fine tree of an Accel and passes a bare tree
+    through, its arrays the JAX package's; ``host_geometry`` gives the
+    arrays the JAX package caches for a scene it built."""
+    tsc = tproc.to_scene(tproc.cornell_box(), "cpu")
+    jsc = jproc.to_scene(jproc.cornell_box())
+    acc = build_bvh_for_scene(tsc, 4)
+    assert tbvh.as_fine(acc) is acc.fine
+    assert tbvh.as_fine(acc.fine) is acc.fine
+    jfine = jbvh.as_fine(jbuild(jsc, 4))
+    for f in tbvh.FlatBVH._fields:
+        np.testing.assert_array_equal(getattr(tbvh.as_fine(acc), f).numpy(),
+                                      np.asarray(getattr(jfine, f)))
+    for a, b in zip(tscene.host_geometry(tsc), jscene.host_geometry(jsc)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_native_available(monkeypatch, tmp_path):
+    """True where both packages compile their BVH build library; False,
+    not a raise, where the compiler is missing."""
+    assert tnative.native_available() is jnative.native_available() is True
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    tnative.load.cache_clear()
+    try:
+        assert tnative.native_available() is False
+    finally:
+        monkeypatch.undo()
+        tnative.load.cache_clear()
+    assert tnative.native_available() is True
 
 
 def _image(h, w, seed):

@@ -1,10 +1,15 @@
 """Inputs shared by the tests of the port's dense fold kernels K1, K2 and K3
 (tests/test_torch_dense_*.py): rays made with numpy or the port's camera,
 the port's packet data and shortlists, and the same scene on the JAX side;
-and the per-pixel rule of the render tests (``assert_pixels_close``).
+and the per-pixel rule of the render tests (``assert_pixels_close``, with
+``jax_normalize_rounded`` to show what its residue share admits).
 
-The JAX package is imported only inside ``jax_scene``, so the kernels'
-``cuda`` cases also run where JAX is not installed."""
+The JAX package is imported only inside ``jax_scene`` and
+``jax_normalize_rounded``, so the kernels' ``cuda`` cases also run where
+JAX is not installed."""
+
+import contextlib
+import sys
 
 import numpy as np
 import torch
@@ -338,3 +343,41 @@ def assert_pixels_close(got, want, seam_flip_share=0.0):
     assert int(far.sum()) <= seam_flip_share * far.size, (
         f"pixels {np.flatnonzero(far).tolist()} differ by more than rtol "
         f"{PIXEL_RESIDUE_RTOL}")
+
+
+@contextlib.contextmanager
+def jax_normalize_rounded():
+    """The JAX package's ``normalized`` made correctly rounded while
+    entered, as the port's is (``vecmath.rsqrt``: 1 / sqrt of the float32
+    |a|^2 in float64, rounded once), through ``jax.pure_callback``, in
+    every module of the package that imported it. It removes the residue
+    ``assert_pixels_close`` admits: XLA:CPU's rsqrt estimate. JAX's
+    caches are cleared on entry and on exit, so that no trace made with
+    the patch outlives it and none made without it is reused."""
+    import jax
+    import jax.numpy as jnp
+
+    from cudapathtracer_tpu.ops import vecmath as jv
+
+    original = jv.normalized
+
+    def rsqrt(n2):
+        return (1.0 / np.sqrt(np.asarray(n2, np.float64))).astype(np.float32)
+
+    def normalized(a):
+        n2 = jv.dot(a, a)
+        return a * jax.pure_callback(
+            rsqrt, jax.ShapeDtypeStruct(n2.shape, jnp.float32), n2)
+
+    patched = [m for name, m in list(sys.modules.items())
+               if name.startswith("cudapathtracer_tpu.")
+               and getattr(m, "normalized", None) is original]
+    for m in patched:
+        m.normalized = normalized
+    jax.clear_caches()
+    try:
+        yield
+    finally:
+        for m in patched:
+            m.normalized = original
+        jax.clear_caches()
