@@ -172,6 +172,26 @@ them:
    golden rule; a flag must change the CPU image, and the card's in the
    same pixels.
    The phase's wall is printed.
+17. bench (K1, K2, K3): the port's bench harnesses
+   (cudapathtracer_tpu_torch/bench.py, bench_scaling.py). (a)
+   ``bench.parts`` at bench.py's defaults in this process: the headline
+   (colonnade subdiv 3, 1024^2, 16 spp), the sweep (subdiv 4, 5 and 6 at 8
+   spp), BDPT 512^2 at sample_batch 2 and the train step at 256^2, each
+   the best of 3 windows after a warm-up; every count at 0 before each part
+   and read after it (BENCH_PART_KERNEL: K1 alone, K2 alone at subdiv 6,
+   no plain call); the assembled line printed as ``bench:`` with every key
+   of bench.py's default run, each value finite and above 0, its
+   baselines bench.py's formulas; the headline's K1 and subdiv 6's K2 on
+   their bounce batches as step 5 checks a batch (sampled tiles). (b) The
+   super knobs (BENCH_SUPER_ENV): K3 alone, and on its bounce batch. (c)
+   ``python -m cudapathtracer_tpu_torch.bench`` in a fresh process, the
+   headline only, where jax cannot be imported: one JSON line with the
+   headline's keys, its context line naming the card. (d) ``python -m
+   cudapathtracer_tpu_torch.bench_scaling`` at its defaults (world 1 over
+   NCCL): value 1.0, the five keys, K1 alone, a profiler trace holding
+   K1's kernel events; then two gloo ranks sharing this card: the gathered
+   image world 1's bit for bit (its efficiency is not a scaling number).
+   The phase's wall is printed.
 
 Each render path runs with every kernel's launch count and every plain
 version's call count set to 0 just before its timed windows and read just
@@ -205,8 +225,11 @@ sample, both culls' trace ms and Mrays/s, and the sample_batch, rounds
 and window variants' Mrays/s and K1 launches per sample, and
 dense_resident/entry with K1's numbers on the entry's bounce batch, its
 launches in the timed entry runs, the entry's ms and Mrays/s, the dry
-runs' losses and K1 launches per rank and each quirk case's gaps), the
-last line the device record.
+runs' losses and K1 launches per rank and each quirk case's gaps, and
+dense_resident/bench, dense/bench and dense_super/bench with the bench
+parts' launches (K1's summed over its parts and by part), each kernel's
+numbers on its part's bounce batch, the bench's lines and the scaling
+runs' lines), the last line the device record.
 
 Run: python3 chip_smoke.py
 """
@@ -320,6 +343,20 @@ QUIRK_CASES = (
 )
 QUIRK_WORKERS = 5
 DRYRUN_RTOL = 1e-5
+# the bench phase (17): the kernel each part of bench.py's default run must
+# launch alone, the super knobs' run (BASELINE.md:123-130) and the JSON's
+# keys
+BENCH_PART_KERNEL = {"headline": "k1", "mrays_82k": "k1", "mrays_328k": "k1",
+                     "mrays_1310k": "k2", "bdpt": "k1", "train": "k1"}
+BENCH_HEADLINE_ONLY = {"BENCH_SWEEP": "0", "BENCH_BDPT": "0",
+                       "BENCH_TRAIN": "0"}
+BENCH_SUPER_ENV = dict(BENCH_HEADLINE_ONLY, BENCH_SUBDIV="5", BENCH_C="256",
+                       BENCH_TWO_LEVEL="super")
+BENCH_HEADLINE_KEYS = {"metric", "value", "unit", "vs_baseline"}
+BENCH_KEYS = BENCH_HEADLINE_KEYS | {
+    "mrays_82k", "mrays_328k", "mrays_1310k", "mrays_328k_vs_baseline",
+    "bdpt_mrays", "bdpt_vs_baseline", "train_step_ms", "grad_mrays"}
+SCALING_KEYS = {"metric", "value", "unit", "vs_baseline", "profile_artifact"}
 # one H100 SXM (its data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -2190,6 +2227,230 @@ def entry_phase(dev, kernels, check_batch, runs=ENTRY_RUNS,
     return res, extra, launches["k1"]
 
 
+def bench_values(label, result, keys):
+    """A bench line's ``keys`` present and every number finite and above
+    0."""
+    if set(result) != keys:
+        raise AssertionError(f"{label}: keys {sorted(result)}, expected "
+                             f"{sorted(keys)}")
+    for k, v in result.items():
+        if k in ("metric", "unit"):
+            continue
+        if not isinstance(v, (int, float)) or not np.isfinite(v) or v <= 0:
+            raise AssertionError(f"{label}: {k} = {v!r}")
+
+
+def run_module(label, module, args=(), env=None, timeout=900):
+    """``python -m module *args`` from the repository, ``env`` added and an
+    import of jax failing (a module named jax that raises, first on the
+    path). -> (its one JSON line on stdout, its standard error); raises
+    unless it exits 0 with exactly one line on stdout."""
+    from cudapathtracer_tpu_torch.utils.build import BUILD_DIR
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as blocked:
+        os.makedirs(os.path.join(blocked, "jax"))
+        with open(os.path.join(blocked, "jax", "__init__.py"), "w") as f:
+            f.write("raise ImportError('jax is blocked here')\n")
+        full = dict(os.environ, **(env or {}))
+        full["PYTHONPATH"] = os.pathsep.join(
+            p for p in (blocked, REPO, full.get("PYTHONPATH")) if p)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", module, *args],
+                              cwd=REPO, env=full, capture_output=True,
+                              text=True, timeout=timeout)
+        wall = time.perf_counter() - t0
+    sys.stderr.write(proc.stderr)
+    lines = proc.stdout.splitlines()
+    print(f"{label}: python -m {module} {' '.join(args)} exit="
+          f"{proc.returncode} stdout_lines={len(lines)} "
+          f"process_wall_s={wall:.2f}")
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"{label}: exit {proc.returncode}, stdout "
+                             f"{proc.stdout[-2000:]!r}")
+    return json.loads(lines[0]), proc.stderr
+
+
+def rank_counts(label, stderr, want_ranks):
+    """The ``# ... rank r: window_s=... k1_launches=...`` lines of
+    bench_scaling's standard error: each rank's windows must have run K1
+    alone. -> K1's launches by rank."""
+    k1 = []
+    for line in stderr.splitlines():
+        if line.startswith("# ") and " window_s=" in line:
+            counts = dict(kv.split("=") for kv in line.split()
+                          if kv.split("=")[0] in ("k1_launches",
+                                                  "k2_launches",
+                                                  "k3_launches",
+                                                  "plain_calls"))
+            counts = {k: int(v) for k, v in counts.items()}
+            if counts["k1_launches"] <= 0 or counts["k2_launches"] or \
+                    counts["k3_launches"] or counts["plain_calls"]:
+                raise AssertionError(f"{label}: a rank did not run K1 "
+                                     f"alone: {line}")
+            k1.append(counts["k1_launches"])
+    if len(k1) != want_ranks:
+        raise AssertionError(f"{label}: {len(k1)} rank lines, expected "
+                             f"{want_ranks}")
+    return k1
+
+
+def trace_kernel_events(prof_dir, name):
+    """The ``torch.profiler`` traces under ``prof_dir``: (files, the CUDA
+    kernel events whose name holds ``name``, every CUDA kernel event)."""
+    import glob
+
+    files = sorted(glob.glob(os.path.join(prof_dir, "*.pt.trace.json")))
+    hits = kernels = 0
+    for path in files:
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+        for e in events:
+            if e.get("cat") == "kernel":
+                kernels += 1
+                hits += name in e.get("name", "")
+    return files, hits, kernels
+
+
+def bench_phase(dev, kernels, check_batch, base_key):
+    """Phase 17: the port's bench harnesses (cudapathtracer_tpu_torch/
+    bench.py and bench_scaling.py). (a) ``bench.parts`` at bench.py's
+    defaults in this process, the counts at 0 before each part and read
+    after it (BENCH_PART_KERNEL: K1 alone, K2 alone at subdiv 6, no plain
+    version); the assembled line printed as ``bench:`` and held to its keys,
+    finite values above 0 and its baselines' formulas; each part's
+    kernel on its bounce batch as step 5 checks a batch (sampled tiles).
+    (b) The super knobs: K3 alone, and on its bounce batch. (c) ``python -m
+    cudapathtracer_tpu_torch.bench`` in a fresh process, headline only,
+    where jax cannot be imported: one JSON line with the headline's keys.
+    (d) ``python -m cudapathtracer_tpu_torch.bench_scaling`` at its
+    defaults (world 1 over NCCL: value 1.0, the five keys, K1 alone, a
+    trace holding K1's kernel events), then two gloo ranks sharing this
+    card (the gathered image world 1's bit for bit). -> {kernel: (launches
+    on the path, its numbers on the bounce batch, extra keys)}."""
+    from cudapathtracer_tpu_torch import bench as B
+    from cudapathtracer_tpu_torch.ops import packets
+    from cudapathtracer_tpu_torch.render import renderer
+    from cudapathtracer_tpu_torch.utils.build import BUILD_DIR
+
+    t_phase = time.perf_counter()
+
+    def bounce_check(label, want, m):
+        prep = renderer.make_packet_prep(m.scene, m.bvh)
+        trace_fn = renderer.make_trace_fn(m.scene, m.cfg, m.bvh, prep=prep)
+        batch = record_batches(m.scene, trace_fn, m.cam, m.cfg,
+                               base_key)["bounce1"]
+        P = renderer.resolve_tile_size(m.cfg, m.scene.num_tris)
+        F = m.cfg.super_factor if want == "k3" else None
+        return check_batch(f"{label}/bounce1", want, batch, m.scene,
+                           prep, m.cfg, P, F, full_plain=False)
+
+    def run_parts(label, env):
+        """``bench.parts(dev, env)`` part by part. -> (the line, launches by
+        part, the headline's and BDPT's unrounded Mrays/s, the bounce-batch
+        numbers by kernel)."""
+        result, launches, mrays, res = {}, {}, {}, {}
+        reset_counts(kernels)
+        for part, keys, m in B.parts(dev, env):
+            torch.cuda.synchronize()
+            want = ("k3" if env.get("BENCH_TWO_LEVEL") == "super"
+                    else BENCH_PART_KERNEL[part])
+            counts, _ = path_counts(f"{label}/{part}", kernels, want)
+            launches[part] = counts[want]
+            result.update(keys)
+            mrays[part] = m.mrays
+            K, C = m.bvh.cl_tri.shape
+            route = packets.route(K, C, m.cfg.two_level_cull,
+                                  m.cfg.super_factor)
+            print(f"{label}/{part}: {m.cfg.width}x{m.cfg.height} "
+                  f"spp={m.cfg.spp} integrator={m.cfg.integrator} "
+                  f"sample_batch={m.cfg.sample_batch} tris={m.scene.num_tris}"
+                  f" clusters={K} C={C} route={route.cull}/{route.kernel} "
+                  f"window_s={[round(s, 4) for s in m.seconds]} "
+                  f"mrays_per_s={m.mrays:.3f} {want}_launches={counts[want]}"
+                  f" (per window {counts[want] / (B.REPEATS + 1):.2f}) "
+                  f"keys={json.dumps(keys)}")
+            if part in ("headline", "mrays_1310k") and want not in res:
+                res[want] = bounce_check(f"{label}/{part}", want, m)
+            del m
+            torch.cuda.empty_cache()
+            reset_counts(kernels)
+        return result, launches, mrays, res
+
+    # ---- (a) bench.py's defaults, part by part -----------------------------
+    result, launches, mrays, res = run_parts("bench", {})
+    print(f"bench: {json.dumps(result)}")
+    bench_values("bench", result, BENCH_KEYS)
+    for key, part, value in (
+            ("vs_baseline", "headline", mrays["headline"]),
+            ("bdpt_vs_baseline", "bdpt", mrays["bdpt"]),
+            ("mrays_328k_vs_baseline", "mrays_328k", result["mrays_328k"])):
+        if result[key] != round(value / B.BASELINE_MRAYS, 3):
+            raise AssertionError(f"bench: {key} = {result[key]}, not "
+                                 f"round({value} / {B.BASELINE_MRAYS}, 3)")
+    k1_parts = [p for p, k in BENCH_PART_KERNEL.items() if k == "k1"]
+    out = {"k1": (sum(launches[p] for p in k1_parts), res["k1"],
+                  dict(bench=result, launches_by_part={
+                      p: launches[p] for p in k1_parts})),
+           "k2": (launches["mrays_1310k"], res["k2"],
+                  dict(mrays_1310k=result["mrays_1310k"]))}
+
+    # ---- (b) the super knobs: K3 -------------------------------------------
+    sresult, slaunches, _, sres = run_parts("bench_super", BENCH_SUPER_ENV)
+    print(f"bench_super: {json.dumps(sresult)}")
+    bench_values("bench_super", sresult, BENCH_HEADLINE_KEYS)
+    out["k3"] = (slaunches["headline"], sres["k3"], dict(bench=sresult))
+
+    # ---- (c) the bench from a fresh process --------------------------------
+    fresh, err = run_module("bench/fresh", "cudapathtracer_tpu_torch.bench",
+                            env=BENCH_HEADLINE_ONLY)
+    print(f"bench/fresh: {json.dumps(fresh)}")
+    bench_values("bench/fresh", fresh, BENCH_HEADLINE_KEYS)
+    if f"device={dev.type}" not in err:
+        raise AssertionError("bench/fresh: the context line names no card")
+    out["k1"][2]["fresh"] = fresh
+
+    # ---- (d) bench_scaling: world 1 over NCCL, two gloo ranks on the card --
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as prof:
+        scaling, err = run_module(
+            "scaling", "cudapathtracer_tpu_torch.bench_scaling",
+            env={"SCALE_PROFILE_DIR": prof})
+        bench_values("scaling", {k: v for k, v in scaling.items()
+                                 if k != "profile_artifact"},
+                     SCALING_KEYS - {"profile_artifact"})
+        k1_ranks = rank_counts("scaling", err, 1)
+        files, hits, n_kernels = trace_kernel_events(
+            scaling["profile_artifact"] or "", "dense_resident_kernel")
+        print(f"scaling: {json.dumps(scaling)} k1_launches={k1_ranks} "
+              f"trace_files={len(files)} trace_kernel_events={n_kernels} "
+              f"k1_events={hits}")
+        if (set(scaling) != SCALING_KEYS or scaling["value"] != 1.0
+                or scaling["metric"] != "scaling efficiency 1->1 "
+                f"({'gpu' if dev.type == 'cuda' else 'cpu'})"
+                or scaling["profile_artifact"] != prof or len(files) != 1
+                or hits <= 0):
+            raise AssertionError("scaling: not the world-1 line with a "
+                                 "trace of K1")
+    shared, err = run_module(
+        "scaling/gloo2", "cudapathtracer_tpu_torch.bench_scaling",
+        ("--world", "2", "--backend", "gloo", "--device", str(dev)),
+        env={"SCALE_PROFILE_DIR": ""})
+    rank_counts("scaling/gloo2", err, 3)
+    same = "# sharded vs 1-rank image max |delta| = 0.0 " in err
+    print(f"scaling/gloo2: {json.dumps(shared)} image_bit_identical={same} "
+          "(the efficiency: two ranks sharing one card, not a scaling "
+          "number)")
+    if not same or set(shared) != SCALING_KEYS:
+        raise AssertionError("scaling/gloo2: the gathered image differs "
+                             "from world 1's")
+    wall = time.perf_counter() - t_phase
+    print(f"bench: phase_wall_s={wall:.1f}")
+    out["k1"][2].update(scaling=scaling, scaling_gloo2_card=shared,
+                        phase_wall_s=wall)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2811,6 +3072,15 @@ def main():
                          resident_src, launches, res)
     entry.update(extra)
     entries.append(entry)
+
+    # ---- 17. bench: the bench harnesses, bench.py's defaults ---------------
+    torch.cuda.empty_cache()
+    for k, (launches, res, extra) in bench_phase(dev, kernels, check_batch,
+                                                 base_key).items():
+        name, source, replaces = sources[k]
+        entry = kernel_entry(f"{name}/bench", source, replaces, launches, res)
+        entry.update(extra)
+        entries.append(entry)
 
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -103,18 +103,18 @@ def make_config(args):
     )
 
 
-def _device(args) -> torch.device:
-    """The device the command runs on; a CUDA device without a card is an
-    error, never a quiet fall back to the CPU."""
-    dev = torch.device(args.device)
+def require_device(name) -> torch.device:
+    """The device a command runs on (its ``--device``); a CUDA device
+    without a card is an error, never a quiet fall back to the CPU."""
+    dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {args.device}: no CUDA device is "
+        raise SystemExit(f"--device {name}: no CUDA device is "
                          "available (pass --device cpu to run on the CPU)")
     return dev
 
 
 def cmd_render(args):
-    dev = _device(args)
+    dev = require_device(args.device)
     if not args.sharded:
         _render(args, dev, None)
         return
@@ -231,7 +231,7 @@ def cmd_heatmap(args):
     from .render.renderer import build_bvh_for_scene
     from .utils.profiling import dump_visit_csv
 
-    dev = _device(args)
+    dev = require_device(args.device)
     scene = build_scene(args, dev)
     cfg = make_config(args)
     cam = make_camera(pos=tuple(args.camera), width=cfg.width,

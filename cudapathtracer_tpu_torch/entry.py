@@ -36,6 +36,7 @@ import torch
 from cudapathtracer_tpu_torch import (RenderConfig, init_accum, make_camera,
                                       render_batch)
 from cudapathtracer_tpu_torch.models import procedural
+from cudapathtracer_tpu_torch.ops.kernels import kernel_counts
 from cudapathtracer_tpu_torch.ops.rng import prng_key
 from cudapathtracer_tpu_torch.render.renderer import build_bvh_for_scene
 from cudapathtracer_tpu_torch.utils.build import BUILD_DIR
@@ -69,22 +70,6 @@ def entry(device="cuda"):
                             num_samples=1)
 
     return fn, (scene, bvh, cam, base_key, state)
-
-
-def _kernel_counts():
-    """The kernel wrappers' launches and the plain versions' calls so far in
-    this process."""
-    from cudapathtracer_tpu_torch.ops.kernels import dense as k2
-    from cudapathtracer_tpu_torch.ops.kernels import dense_resident as k1
-    from cudapathtracer_tpu_torch.ops.kernels import dense_super as k3
-
-    return dict(
-        k1_launches=k1.dense_intersect_resident.launches,
-        k2_launches=k2.dense_intersect.launches,
-        k3_launches=k3.dense_intersect_super.launches,
-        plain_calls=(k1.dense_intersect_resident_plain.calls
-                     + k2.dense_intersect_plain.calls
-                     + k3.dense_intersect_super_plain.calls))
 
 
 def dryrun_rank(mesh, out_dir):
@@ -122,7 +107,7 @@ def dryrun_rank(mesh, out_dir):
     loss, _, _ = step(rg.targets_of(scene), None, target, key)
     return dict(loss=np.asarray(float(loss), np.float64),
                 n=np.asarray(state.n), finite=np.asarray(finite),
-                **{k: np.asarray(v) for k, v in _kernel_counts().items()})
+                **{k: np.asarray(v) for k, v in kernel_counts().items()})
 
 
 def dryrun_ranks(n_devices: int, device="cuda", backend=None):
@@ -132,18 +117,6 @@ def dryrun_ranks(n_devices: int, device="cuda", backend=None):
     for NCCL on a card and gloo on the CPU, or the one named."""
     from cudapathtracer_tpu_torch.parallel.launch import start_ranks
 
-    dev = torch.device(device)
-    if backend is None:
-        backend = "nccl" if dev.type == "cuda" else "gloo"
-    if backend == "nccl":
-        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        have = (f"{cards} are present" if dev.index is None
-                else f"{device} names one")
-        if n_devices > (cards if dev.index is None else 1):
-            raise RuntimeError(
-                f"{n_devices} NCCL ranks need a card each, and {have}; "
-                "NCCL refuses two ranks on one card (backend='gloo' shares "
-                "one)")
     os.makedirs(BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as out_dir:
         wait = start_ranks(os.path.abspath(__file__), "dryrun_rank",

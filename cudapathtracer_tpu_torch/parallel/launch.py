@@ -46,7 +46,20 @@ def start_ranks(file, function, world, out_dir, device="cuda",
     this process's.
     -> ``wait()``, which waits for them, kills every rank and raises if one
     fails or the ranks outlast ``timeout`` seconds, and otherwise returns
-    each rank's dict of arrays in rank order."""
+    each rank's dict of arrays in rank order. NCCL takes one card a rank:
+    more NCCL ranks than cards, or than the one card ``device`` names,
+    raise before any rank starts."""
+    import torch
+
+    dev = torch.device(device)
+    if (backend or ("nccl" if dev.type == "cuda" else "gloo")) == "nccl":
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        have = (f"{cards} are present" if dev.index is None
+                else f"{device} names one")
+        if world > (cards if dev.index is None else 1):
+            raise RuntimeError(
+                f"{world} NCCL ranks need a card each, and {have}; NCCL "
+                "refuses two ranks on one card (backend='gloo' shares one)")
     init = f"tcp://127.0.0.1:{free_port()}"
     env = dict(os.environ, **(env or {}))
     env["PYTHONPATH"] = os.pathsep.join(
