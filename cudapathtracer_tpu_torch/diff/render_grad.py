@@ -27,6 +27,7 @@ converge to them.
 from __future__ import annotations
 
 import dataclasses
+from contextlib import nullcontext
 from typing import NamedTuple
 
 import torch
@@ -40,6 +41,7 @@ from ..ops.traversal import Hit
 from ..ops.vecmath import Vec3, gather, stop_gradient, take_clip
 from ..render.camera import camera_rays
 from ..render.renderer import _radiance, make_trace_fn
+from ..utils import tracing
 from ..utils.config import RenderConfig, check_supported
 from .edge_sampling import (boundary_image, build_edge_table,
                             shadow_boundary_image)
@@ -101,6 +103,14 @@ def render_image_diff(scene: Scene, cam, cfg: RenderConfig, base_key,
     Morton-contiguous pixel tile; the boundary terms scatter only into it,
     so the tiles' images add up to the whole image's. ``edge_table``
     (``build_edge_table``) is needed by either boundary term."""
+    with tracing.span("diff.forward"):
+        return _render_image_diff(scene, cam, cfg, base_key, spp, bvh,
+                                  trace_data, idx, edge_samples, edge_table,
+                                  shadow_edge_samples)
+
+
+def _render_image_diff(scene, cam, cfg, base_key, spp, bvh, trace_data, idx,
+                       edge_samples, edge_table, shadow_edge_samples):
     check_supported(cfg)
     scene = recompute_derived(scene)
     dev = scene.verts.x.device
@@ -127,9 +137,12 @@ def render_image_diff(scene: Scene, cam, cfg: RenderConfig, base_key,
 
     acc = Vec3.zeros((r,), dev)
     for s in range(spp):
-        # the randoms are counters, so the recompute needs no RNG state
-        acc = acc + Vec3(*checkpoint(one_sample, s, use_reentrant=False,
-                                     preserve_rng_state=False))
+        # the randoms are counters, so the recompute needs no RNG state;
+        # the backward's run of the sample is the span diff.recompute
+        acc = acc + Vec3(*checkpoint(
+            one_sample, s, use_reentrant=False, preserve_rng_state=False,
+            context_fn=lambda: (nullcontext(),
+                                tracing.span("diff.recompute", sample=s))))
     img = acc * (1.0 / spp)
 
     # every tile draws the same global edge samples and scatters only those

@@ -36,6 +36,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import tracing
 from ..utils.constants import MAX_FLOAT
 from .kernels.dense import dense_intersect
 from .kernels.dense_resident import (
@@ -443,6 +444,18 @@ def trace_packets(o: Vec3, d: Vec3, pd: PacketData,
     The search is detached (packets.py:321-323): rays, caps and scene data
     are detached and nothing is recorded, so the kernels' wrappers never
     see a tensor that requires grad."""
+    with tracing.span("packets.trace", rays=o.x.shape[0]):
+        return _trace_packets(o, d, pd, fine_td, mask, tile_size,
+                              max_clusters, sort, rounds, first_round_slots,
+                              sort_window, two_level, super_factor,
+                              super_slots, super_list, resident_pack, t_cap,
+                              vis_band, intersector)
+
+
+def _trace_packets(o, d, pd, fine_td, mask, tile_size, max_clusters, sort,
+                   rounds, first_round_slots, sort_window, two_level,
+                   super_factor, super_slots, super_list, resident_pack,
+                   t_cap, vis_band, intersector):
     o, d, pd, fine_td, resident_pack, t_cap = stop_gradient(
         (o, d, pd, fine_td, resident_pack, t_cap))
     R = o.x.shape[0]
@@ -498,19 +511,20 @@ def _sorted_round(o, d, mask, t_cap, window, max_clusters, fine_td,
         return _trace_tiles(o, d, mask, t_cap, max_clusters, fine_td,
                             need_out, **tile)
     R = o.x.shape[0]
-    perm = sort_rays(o, d, mask, tile["pd"], window)
-    Rw = perm.shape[0]
+    with tracing.span("packets.sort"):
+        perm = sort_rays(o, d, mask, tile["pd"], window)
+        Rw = perm.shape[0]
 
-    def take(a, fill):
-        # pad lanes: masked, unit direction, never past R after the sort
-        if Rw != R:
-            a = torch.cat([a, a.new_full((Rw - R,), fill)])
-        return a[perm]
+        def take(a, fill):
+            # pad lanes: masked, unit direction, never past R after the sort
+            if Rw != R:
+                a = torch.cat([a, a.new_full((Rw - R,), fill)])
+            return a[perm]
 
-    out = _trace_tiles(Vec3(*(take(c, 0.0) for c in o)),
+        sorted_rays = (Vec3(*(take(c, 0.0) for c in o)),
                        Vec3(*(take(c, 1.0) for c in d)), take(mask, False),
-                       None if t_cap is None else take(t_cap, 0.0),
-                       max_clusters, fine_td, need_out, **tile)
+                       None if t_cap is None else take(t_cap, 0.0))
+    out = _trace_tiles(*sorted_rays, max_clusters, fine_td, need_out, **tile)
 
     def unsort(a):
         b = torch.empty_like(a)
@@ -527,11 +541,12 @@ def _trace_tiles(o, d, mask, t_cap, max_clusters, fine_td, need_out, pd,
                  vis_band, intersector):
     """Shortlists of the rays in their order, the kernel ``rt`` names and
     ``_finish``."""
-    sl = build_shortlists(
-        o, d, mask, pd, tile_size, max_clusters,
-        super_factor=None if rt.cull == "flat" else super_factor,
-        super_list=super_list, t_cap=t_cap,
-        super_slots=super_slots if rt.cull == "two_level" else None)
+    with tracing.span("packets.cull"):
+        sl = build_shortlists(
+            o, d, mask, pd, tile_size, max_clusters,
+            super_factor=None if rt.cull == "flat" else super_factor,
+            super_list=super_list, t_cap=t_cap,
+            super_slots=super_slots if rt.cull == "two_level" else None)
     args = (sl.ids, sl.counts, sl.entries, sl.rays, *pack)
     kw = dict(vis_band=vis_band, intersector=intersector)
     if rt.kernel == "super":
@@ -571,7 +586,7 @@ def _finish(o, d, t_best, tri_best, mask, U, fine_td, R, t_cap=None,
     # cluster at or beyond the cap holds only hits reported as misses
     t_eff = t_flat if t_cap is None else torch.minimum(t_flat, t_cap)
     need_fb = mask & (t_eff >= u_ray)
-    if not need_out and fine_td is not None and bool(need_fb.any()):
+    if not need_out and fine_td is not None and _any_fallback(need_fb, mask):
         fb = trace(o, d, fine_td, mask=need_fb, intersector=intersector)
         t_flat = torch.where(need_fb, fb.t, t_flat)
         tri_flat = torch.where(need_fb, fb.tri, tri_flat)
@@ -580,3 +595,14 @@ def _finish(o, d, t_best, tri_best, mask, U, fine_td, R, t_cap=None,
         # after the fallback, whose hits are uncapped
         hit = apply_t_cap(hit, t_cap)
     return (hit, need_fb) if need_out else hit
+
+
+def _any_fallback(need_fb, mask) -> bool:
+    """``need_fb.any()`` on the host: the call's one synchronize. With
+    tracing on, the round's masked-in rays ride the same read and count as
+    ``packets.live_rays``."""
+    if not tracing.enabled():
+        return bool(need_fb.any())
+    live, fallback = torch.stack([mask, need_fb]).sum(1).tolist()
+    tracing.count("packets.live_rays", live)
+    return fallback > 0

@@ -37,6 +37,7 @@ from ..ops.vecmath import Vec3
 from ..utils.color import finalize as color_finalize
 from ..utils.color import quantize_u8
 from ..utils.config import RenderConfig, check_supported
+from ..utils import tracing
 from ..utils.constants import MAX_BVH_DEPTH
 from ..utils.morton import morton_to_scanline_perm
 from .camera import Camera, camera_rays
@@ -191,16 +192,19 @@ def _make_trace_fn(scene, cfg, bvh, prep, trace_data):
 def _radiance(o, d, scene, trace_fn, keys, cfg: RenderConfig,
               primary_hit=None) -> Vec3:
     """The integrator ``cfg.integrator`` names (renderer.py:239-252)."""
-    if cfg.integrator == "pt_nee":
-        params = PTParams(num_bounces=cfg.num_bounces,
-                          orthonormal_frame=cfg.orthonormal_frame,
-                          light_normal_mode=cfg.light_normal_mode,
-                          branch_pdf_correction=cfg.branch_pdf_correction)
-        return radiance_pt_nee(o, d, scene, trace_fn, keys, params,
-                               primary_hit=primary_hit)
-    return radiance_bdpt(o, d, scene, trace_fn, keys,
-                         BDPTParams(orthonormal_frame=cfg.orthonormal_frame),
-                         primary_hit=primary_hit)
+    with tracing.span("integrator.radiance"):
+        if cfg.integrator == "pt_nee":
+            params = PTParams(
+                num_bounces=cfg.num_bounces,
+                orthonormal_frame=cfg.orthonormal_frame,
+                light_normal_mode=cfg.light_normal_mode,
+                branch_pdf_correction=cfg.branch_pdf_correction)
+            return radiance_pt_nee(o, d, scene, trace_fn, keys, params,
+                                   primary_hit=primary_hit)
+        return radiance_bdpt(
+            o, d, scene, trace_fn, keys,
+            BDPTParams(orthonormal_frame=cfg.orthonormal_frame),
+            primary_hit=primary_hit)
 
 
 def render_batch(scene, bvh: Accel | None, cam: Camera, cfg: RenderConfig,
@@ -218,6 +222,13 @@ def render_batch(scene, bvh: Accel | None, cam: Camera, cfg: RenderConfig,
     (``num_samples // S`` groups of S, then the rest one at a time; JAX
     renderer.py:296-337): each sample's radiance and its accumulation in
     order are those of S = 1, so the image is the same bit for bit."""
+    with tracing.span("render.batch", samples=num_samples):
+        return _render_batch(scene, bvh, cam, cfg, base_key, state,
+                             num_samples, prep, idx)
+
+
+def _render_batch(scene, bvh, cam, cfg, base_key, state, num_samples, prep,
+                  idx):
     check_supported(cfg)
     dev = cam.pos.x.device
     trace_fn = make_trace_fn(scene, cfg, bvh, prep=prep)

@@ -18,6 +18,12 @@ reference's three mechanisms (SURVEY.md §5.1):
 ``profile_trace`` wraps ``torch.profiler`` around a block;
 ``device_health`` is the getGPUTemp analogue (kernel.cu:555-563) and
 ``falsecolor_state`` the library form of the 'sponza bvh.ppm' keeper.
+
+The program's own spans and counters (the pass, the integrator glue, the
+packet engine's sort and cull, live rays, the train step's recompute) are
+``utils/tracing.py``, a module apart because this one imports the
+renderer; with ``tracing.enable(True)`` they show as ranges in a
+``profile_trace`` capture.
 """
 
 from __future__ import annotations
