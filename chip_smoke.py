@@ -19,6 +19,17 @@ them:
 4. engines: a 32x32 pt_nee Cornell render with traversal="bvh" and one
    with traversal="brute": bit-identical images, and no fold kernel or
    plain fold runs;
+4b. fma: the glue's FMA kernel (csrc/fma.cu) against its plain version,
+   the float64 emulation, bit for bit (NaN for NaN): on the hard cases of
+   tests/test_torch_fma.py, on FMA_BITS_N random bit patterns and as many
+   triples whose result lives in the product's low bits, and at the main
+   paths' lane counts FMA_SIZES, as contiguous tensors and as columns of
+   9-wide tables. At each of those the kernel, its plain version and the
+   library's nearest op, torch.addcmul (its differing bits printed), are
+   timed on the card (FMA_REPS calls enqueued behind a spin, so the events
+   hold the card's time alone) and on the host (the time to enqueue a call),
+   beside the bound, 16 bytes an element. Every render path below must
+   launch it beside its fold kernel;
 5. headline (resident route, K1): colonnade subdiv 3 (20,884 triangles,
    adaptive C = 256, P = 256). On the primary batch and a sorted bounce
    batch of a real pt_nee sample: K1 against its plain version on the
@@ -208,8 +219,9 @@ is issued over needed,
 and fold_fraction is folded over (group, slot) pairs listed. Counting
 launches are not timed and are not the path's. Each phase prints lines of
 its own; any failure raises. The line before the last is a JSON summary of
-the kernels (one K1 entry per resident path, with the bounce batch's
-numbers, dense_resident_mt/mt, dense_mt and dense_super_mt for the
+the kernels (fma with its launches in the headline windows and its
+numbers at each lane count, one K1 entry per resident path, with the bounce
+batch's numbers, dense_resident_mt/mt, dense_mt and dense_super_mt for the
 Moller-Trumbore instances, dense_resident/bdpt with the connection
 batch's numbers and the visibility instances' times, and dense_resident/train
 with K1's launches per interior train step, its time on the step's bounce
@@ -361,6 +373,11 @@ SCALING_KEYS = {"metric", "value", "unit", "vs_baseline", "profile_artifact"}
 # float32 operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+# the glue's lanes: the 1024^2 PT+NEE pass, the 512^2 BDPT pass and the
+# 256^2 train step
+FMA_SIZES = (1_048_576, 262_144, 65_536)
+FMA_BITS_N = 2 ** 22
+FMA_REPS = 100
 
 
 def image_rule(label, got, want, tol=2, max_frac=0.005):
@@ -633,30 +650,35 @@ class WalkLog:
 
 
 def reset_counts(kernels):
-    """Every kernel's launch count and every plain version's call count to
-    0."""
+    """Every kernel's launch count (and the FMA's count of expanded
+    operands) and every plain version's call count to 0."""
     for _, wrapper, plain in kernels.values():
         wrapper.launches = 0
         plain.calls = 0
+        if hasattr(wrapper, "expanded"):
+            wrapper.expanded = 0
 
 
 def path_counts(label, kernels, expect):
     """-> (launches by kernel, plain calls) since ``reset_counts``; raises
-    unless ``expect`` launched and nothing else ran."""
+    unless ``expect`` launched, with the glue's FMA kernel where
+    ``kernels`` lists it, and no other kernel nor plain version ran."""
     launches = {n: w.launches for n, (_, w, _) in kernels.items()}
     plain_calls = sum(p.calls for _, _, p in kernels.values())
-    others = sum(v for n, v in launches.items() if n != expect)
-    if launches[expect] <= 0 or others or plain_calls:
+    others = sum(v for n, v in launches.items() if n not in (expect, "fma"))
+    if launches[expect] <= 0 or launches.get("fma", 1) <= 0 or others \
+            or plain_calls:
         raise AssertionError(f"{label}: the path did not run through "
-                             f"{expect} alone: {launches}, {plain_calls} "
-                             "plain calls")
+                             f"{expect} and the FMA alone: {launches}, "
+                             f"{plain_calls} plain calls")
     return launches, plain_calls
 
 
 def render_windows(label, kernels, expect, run, cfg, spp, windows):
     """One warm-up window, then ``windows`` timed ones with every count at
-    0 before them; the image must be finite and lit, ``expect`` must have
-    launched and nothing else may have run. -> launches of ``expect``."""
+    0 before them; the image must be finite and lit, ``expect`` and the FMA
+    must have launched and nothing else may have run. -> launches by
+    kernel."""
     run()
     torch.cuda.synchronize()
     reset_counts(kernels)
@@ -680,10 +702,12 @@ def render_windows(label, kernels, expect, run, cfg, spp, windows):
           f"finite={finite} "
           + " ".join(f"{n}_launches={v}" for n, v in launches.items())
           + f" launches_per_sample={launches[expect] / (windows * spp):.2f}"
+          f" fma_launches_per_sample={launches['fma'] / (windows * spp):.2f}"
+          f" fma_expanded={kernels['fma'][1].expanded}"
           f" plain_calls={plain_calls}")
     if img.shape != (cfg.num_pixels, 3) or not finite or img.max() <= 0:
         raise AssertionError(f"{label}: image is not finite and lit")
-    return launches[expect]
+    return launches
 
 
 def kernel_entry(name, source, replaces, launches, res):
@@ -695,6 +719,113 @@ def kernel_entry(name, source, replaces, launches, res):
             "bound_by": res["bound"][1], "library_ms": None,
             "tiles": res["tiles"], "plain_tiles": res["plain_tiles"],
             "tests_issued": res["issued"], "tests_needed": res["needed"]}
+
+
+def fma_operands(n, kind, cols, seed, dev):
+    """(a, b, c), n float32 elements each on ``dev``, as columns of
+    ``cols``-wide tables (1: contiguous). ``kind`` "bits": random bit
+    patterns (every exponent, subnormals, inf and NaN); "near_cancel": c
+    near -a*b, so that the result lives in the product's low bits."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "bits":
+        xs = [torch.randint(-2**31, 2**31, (n, cols), generator=g,
+                            dtype=torch.int64).to(torch.int32).view(
+                                torch.float32) for _ in range(3)]
+    else:
+        a, b = (torch.randn((n, cols), generator=g) * 3.0 for _ in range(2))
+        xs = [a, b, -(a * b) * (1 + torch.randn((n, cols), generator=g)
+                                * 1e-6)]
+    return tuple(x.to(dev)[:, 0] for x in xs)
+
+
+def bits_differ(got, want):
+    """Elements whose bits differ, NaN for NaN (a NaN's payload is the
+    device's)."""
+    nan = torch.isnan(want)
+    return int((torch.isnan(got) != nan).sum()) + int(
+        ((got.view(torch.int32) != want.view(torch.int32)) & ~nan).sum())
+
+
+def card_and_host_us(fn, reps):
+    """(card us, host us) a call of ``fn``: the host's time to enqueue
+    ``reps`` calls back to back, then the card's time for as many between
+    two CUDA events, enqueued while a spin kernel holds the card for twice
+    the enqueue time (at 2 GHz), so that the events see the card alone."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host * reps * 2e9))
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) * 1e3 / reps, host * 1e6
+
+
+def fma_phase(dev):
+    """Step 4b: the glue's FMA kernel against its plain version, bit for
+    bit, and the kernel, the plain version and torch.addcmul timed at each
+    lane count. -> {"<n>/<form>": its numbers}."""
+    from cudapathtracer_tpu_torch.ops.kernels import fma as kfma
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from test_torch_fma import HARD_CASES
+
+    a, b, c = (torch.tensor(col, dtype=torch.float32, device=dev)
+               for col in zip(*HARD_CASES))
+    want = kfma.fma_plain(a, b, c)
+    hard = (bits_differ(kfma.fma(a, b, c), want),
+            bits_differ(torch.addcmul(c, a, b), want))
+    line = (f"fma: hard_cases={len(HARD_CASES)} kernel_differs={hard[0]} "
+            f"addcmul_differs={hard[1]}")
+    bad = hard[0]
+    for kind in ("bits", "near_cancel"):
+        a, b, c = fma_operands(FMA_BITS_N, kind, 1, 7, dev)
+        want = kfma.fma_plain(a, b, c)
+        differ = (bits_differ(kfma.fma(a, b, c), want),
+                  bits_differ(torch.addcmul(c, a, b), want))
+        line += (f" {kind}={FMA_BITS_N} kernel_differs={differ[0]} "
+                 f"addcmul_differs={differ[1]}")
+        bad += differ[0]
+    print(line)
+    if bad:
+        raise AssertionError("fma: the kernel's bits differ from its plain "
+                             "version's")
+    rows = {}
+    for n in FMA_SIZES:
+        for form, cols in (("contiguous", 1), ("stride9", 9)):
+            differ = lib_differ = 0
+            for kind in ("bits", "near_cancel"):
+                a, b, c = fma_operands(n, kind, cols, n + cols, dev)
+                want = kfma.fma_plain(a, b, c)
+                differ += bits_differ(kfma.fma(a, b, c), want)
+                lib_differ += bits_differ(torch.addcmul(c, a, b), want)
+            us = {name: card_and_host_us(fn, FMA_REPS) for name, fn in (
+                ("kernel", lambda: kfma.fma(a, b, c)),
+                ("plain", lambda: kfma.fma_plain(a, b, c)),
+                ("library", lambda: torch.addcmul(c, a, b)))}
+            bound_us = 16 * n / PEAK_BYTES_PER_S * 1e6
+            print(f"fma: n={n} form={form} kernel_differs={differ} "
+                  f"addcmul_differs={lib_differ} (of {2 * n}) "
+                  + " ".join(f"{k}_card_us={v[0]:.3f} {k}_host_us={v[1]:.2f}"
+                             for k, v in us.items())
+                  + f" bound_us={bound_us:.3f}")
+            if differ:
+                raise AssertionError(f"fma: n={n} {form}: the kernel's bits "
+                                     "differ from its plain version's")
+            rows[f"{n}/{form}"] = dict(
+                ms=us["kernel"][0] / 1e3, host_us=us["kernel"][1],
+                plain_ms=us["plain"][0] / 1e3, plain_host_us=us["plain"][1],
+                library_ms=us["library"][0] / 1e3,
+                library_host_us=us["library"][1],
+                library_differs=lib_differ, bound_ms=bound_us / 1e3)
+    return rows
 
 
 def band_caps(rays, t, best, seed=11):
@@ -909,7 +1040,7 @@ def train_phase(dev, kernels, size=TRAIN_SIZE,
         launches = k1_wrap.launches
         plain_calls = sum(pl.calls for _, _, pl in kernels.values())
         others = sum(w.launches for n, (_, w, _) in kernels.items()
-                     if n != "k1")
+                     if n not in ("k1", "fma"))
         fwd, rec = log.split()
         same_ids = len(rec) > 0 and all(
             torch.equal(i_r, i_f) for (_, i_r), (_, i_f) in zip(rec, fwd))
@@ -1762,11 +1893,11 @@ def sharded_phase(dev, kernels, check_batch, base_key, live_png,
 def windows_in_turns(label, kernels, expect, runs, rays, windows):
     """Render windows of several configurations of one path in turns (the
     order reversed every other round) after a warm-up of each, every count
-    at 0 before each window and read after it: ``expect`` alone must
-    launch, each configuration's windows must repeat bit for bit and every
-    configuration must render the first one's image bit for bit, finite and
-    lit. ``runs``: {name: () -> AccumState}; ``rays``: rays a window.
-    -> {name: {"launches", "mrays", "peak_mib"}}."""
+    at 0 before each window and read after it: ``expect`` and the FMA
+    alone must launch, each configuration's windows must repeat bit for bit
+    and every configuration must render the first one's image bit for bit,
+    finite and lit. ``runs``: {name: () -> AccumState}; ``rays``: rays a
+    window. -> {name: {"launches", "fma_launches", "mrays", "peak_mib"}}."""
     names = list(runs)
     bits = {}
     for n in names:
@@ -1774,6 +1905,7 @@ def windows_in_turns(label, kernels, expect, runs, rays, windows):
     torch.cuda.synchronize()
     walls = {n: [] for n in names}
     launches = dict.fromkeys(names, 0)
+    fma = dict.fromkeys(names, 0)
     peak = dict.fromkeys(names, 0)
     for i in range(windows):
         for n in (names if i % 2 == 0 else names[::-1]):
@@ -1784,8 +1916,9 @@ def windows_in_turns(label, kernels, expect, runs, rays, windows):
             st = runs[n]()
             torch.cuda.synchronize()
             walls[n].append(time.perf_counter() - t0)
-            launches[n] += path_counts(f"{label}/{n}", kernels,
-                                       expect)[0][expect]
+            counts = path_counts(f"{label}/{n}", kernels, expect)[0]
+            launches[n] += counts[expect]
+            fma[n] += counts.get("fma", 0)
             peak[n] = max(peak[n], torch.cuda.max_memory_allocated())
             if not all(torch.equal(a, b)
                        for a, b in zip(state_bits(st), bits[n])):
@@ -1799,13 +1932,15 @@ def windows_in_turns(label, kernels, expect, runs, rays, windows):
     out = {}
     for n in names:
         ws = walls[n]
-        out[n] = dict(launches=launches[n], peak_mib=peak[n] / 2**20,
+        out[n] = dict(launches=launches[n], fma_launches=fma[n],
+                      peak_mib=peak[n] / 2**20,
                       mrays=rays * windows / sum(ws) / 1e6)
         print(f"{label}: {n} windows={windows} window_seconds="
               f"{[round(w, 4) for w in ws]} mrays_per_s={out[n]['mrays']:.3f}"
               f" window_mrays_per_s_min={rays / max(ws) / 1e6:.3f} "
               f"max={rays / min(ws) / 1e6:.3f} {expect}_launches="
-              f"{launches[n]} peak_mib={out[n]['peak_mib']:.1f} "
+              f"{launches[n]} fma_launches={fma[n]} "
+              f"peak_mib={out[n]['peak_mib']:.1f} "
               f"bit_identical_to_{names[0]}={same[n]}")
     print(f"{label}: images_bit_identical={all(same.values())} "
           f"finite={finite} image_max={float(img.max()):.4f} (windows in "
@@ -2473,6 +2608,7 @@ def main():
     from cudapathtracer_tpu_torch.ops.kernels import dense as k2
     from cudapathtracer_tpu_torch.ops.kernels import dense_resident as k1
     from cudapathtracer_tpu_torch.ops.kernels import dense_super as k3
+    from cudapathtracer_tpu_torch.ops.kernels import fma as kfma
     from cudapathtracer_tpu_torch.ops.kernels.dense_resident import (
         intersector_of)
     from cudapathtracer_tpu_torch.ops.kernels.work import (OPS_PER_TEST,
@@ -2491,6 +2627,7 @@ def main():
         "k2": (k2.build, k2.dense_intersect, k2.dense_intersect_plain),
         "k3": (k3.build, k3.dense_intersect_super,
                k3.dense_intersect_super_plain),
+        "fma": (kfma.build, kfma.fma, kfma.fma_plain),
     }
 
     # ---- 2. build: every nvcc and the BVH builder at once ------------------
@@ -2578,9 +2715,13 @@ def main():
     print(f"engines: bvh_vs_brute_bit_identical={same} finite_and_lit={lit} "
           + " ".join(f"{n}_launches={v}" for n, v in launched.items())
           + f" plain_calls={plain_calls}")
-    if not (same and lit) or any(launched.values()) or plain_calls:
+    if not (same and lit) or plain_calls or any(
+            v for n, v in launched.items() if n != "fma"):
         raise AssertionError("the bvh and brute engines' images differ, or "
                              "a fold kernel ran")
+
+    # ---- 4b. fma: the glue's FMA kernel against its plain version ----------
+    fma_rows = fma_phase(dev)
 
     def setup(label, subdiv, size=HEADLINE_SIZE, integrator="pt_nee",
               **cfg_kw):
@@ -2978,9 +3119,22 @@ def main():
             name, source, replaces = sources[want]
             if isect == "mt":
                 name, replaces = f"{name}_mt", mt_pallas[want]
+            if lab == "headline":
+                # the FMA's entry: its launches in the main path's windows
+                head = fma_rows[f"{HEADLINE_SIZE ** 2}/contiguous"]
+                entries.append({
+                    "name": "fma", "route": "cuda",
+                    "source": "cudapathtracer_tpu_torch/csrc/fma.cu",
+                    "replaces": None, "launches": launches["fma"],
+                    "launches_per_sample": launches["fma"] / (vwin * vspp),
+                    "max_abs_err": 0.0, "ms": head["ms"],
+                    "plain_ms": head["plain_ms"],
+                    "bound_ms": head["bound_ms"], "bound_by": "bytes",
+                    "library": "torch.addcmul",
+                    "library_ms": head["library_ms"], "sizes": fma_rows})
             entries.append(kernel_entry(
                 f"{name}/{lab}" if want == "k1" else name, source, replaces,
-                launches, res))
+                launches[want], res))
             del prep, trace_fn, window, batches
         del scene, bvh
         torch.cuda.empty_cache()
@@ -3022,8 +3176,10 @@ def main():
              cfg, vis_dropout=True))},
         cfg.num_pixels * cfg.spp * (cfg.num_bounces + 1), PATH_WINDOWS)
     launches = sum(w["launches"] for w in wins.values())
-    print(f"bdpt: k1_launches_per_sample="
-          f"{launches / (2 * PATH_WINDOWS * cfg.spp):.2f}")
+    samples = 2 * PATH_WINDOWS * cfg.spp
+    print(f"bdpt: k1_launches_per_sample={launches / samples:.2f} "
+          "fma_launches_per_sample="
+          f"{sum(w['fma_launches'] for w in wins.values()) / samples:.2f}")
     entry = kernel_entry("dense_resident/bdpt", "dense_resident.cu",
                          resident_src, launches, conn)
     entry.update(vis_ms)

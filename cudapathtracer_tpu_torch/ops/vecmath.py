@@ -15,6 +15,8 @@ from typing import NamedTuple
 
 import torch
 
+from .kernels import fma as fma_kernel
+
 
 class Vec3(NamedTuple):
     """SoA 3-vector: three same-shaped tensors (or scalars)."""
@@ -70,19 +72,15 @@ class Vec3(NamedTuple):
 
 
 def _fma_rounded(a, b, c):
-    """a*b + c of float32 tensors, rounded once (see ``fma``)."""
+    """a*b + c of float32 tensors, rounded once (see ``fma``): the CUDA
+    kernel for ``a`` on a card, its plain version (the float64 emulation)
+    elsewhere."""
     if a.dtype == torch.float64:
         # float64 operands (``gradcheck``): no float32 rounding to emulate
         return a * b + c
-    p = a.double() * b.double()
-    c64 = c.double()
-    s = p + c64
-    bb = s - p
-    err = (p - (s - bb)) + (c64 - bb)
-    fix = ((err != 0) & ((s.view(torch.int64) & 1) == 0)
-           & torch.isfinite(s))
-    toward = torch.where(err > 0, torch.inf, -torch.inf).double()
-    return torch.where(fix, torch.nextafter(s, toward), s).float()
+    if a.is_cuda:
+        return fma_kernel.fma(a, b, c)
+    return fma_kernel.fma_plain(a, b, c)
 
 
 def _cotangent(g, other, shape):
@@ -120,17 +118,17 @@ class _FMA(torch.autograd.Function):
 
 
 def fma(a, b, c):
-    """Fused multiply-add a*b + c of float32 tensors, rounded once.
-
-    The product is exact in float64; the sum is formed in float64 rounded to
-    odd (a TwoSum error term moves an inexact even result to its odd
-    neighbour), which makes the final rounding to float32 the correct one.
-    A Python number ``b`` is taken as float32, as JAX takes it. Under
-    autograd it is one ``torch.autograd.Function`` (``_FMA``)."""
-    if not torch.is_tensor(b):
-        b = torch.tensor(b, dtype=a.dtype, device=a.device)
-    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad
-                                    or c.requires_grad):
+    """Fused multiply-add a*b + c of float32 tensors, rounded once: one
+    ``__fmaf_rn`` kernel on a card, on the CPU its plain version, which
+    forms the sum in float64 rounded to odd (``kernels/fma.py``). A Python
+    number ``b`` is taken as float32, as JAX takes it; the kernel takes it
+    by value. Under autograd it is one ``torch.autograd.Function``
+    (``_FMA``)."""
+    if torch.is_grad_enabled() and (
+            a.requires_grad or c.requires_grad
+            or (torch.is_tensor(b) and b.requires_grad)):
+        if not torch.is_tensor(b):
+            b = torch.tensor(b, dtype=a.dtype, device=a.device)
         return _FMA.apply(a, b, c)
     return _fma_rounded(a, b, c)
 
