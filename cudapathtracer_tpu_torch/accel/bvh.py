@@ -78,6 +78,72 @@ class Accel(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
+# refit: the boxes about moved vertices, the topology kept
+# ---------------------------------------------------------------------------
+
+def _tri_boxes(verts, tris):
+    """(T + 1, 3) lo and hi of each triangle's vertices, the last row the
+    padding sentinel's empty box (+inf, -inf)."""
+    corners = [torch.stack([c[t.long()] for c in verts], 1) for t in tris]
+    lo = torch.minimum(torch.minimum(corners[0], corners[1]), corners[2])
+    hi = torch.maximum(torch.maximum(corners[0], corners[1]), corners[2])
+    inf = lo.new_full((1, 3), float("inf"))
+    return torch.cat([lo, inf]), torch.cat([hi, -inf])
+
+
+def _range_boxes(lo, hi, first, end):
+    """min(lo[first:end]) and max(hi[first:end]) for each range, by a
+    sparse table over the rows (every range holds one row at least)."""
+    n = lo.shape[0]
+    los, his, w = [lo], [hi], 1
+    while 2 * w <= n:
+        a, b = los[-1], his[-1]
+        pad = n - (a.shape[0] - w)
+        los.append(torch.cat([torch.minimum(a[:-w], a[w:]),
+                              lo.new_full((pad, 3), float("inf"))]))
+        his.append(torch.cat([torch.maximum(b[:-w], b[w:]),
+                              hi.new_full((pad, 3), float("-inf"))]))
+        w *= 2
+    table_lo, table_hi = torch.stack(los), torch.stack(his)  # (levels, n, 3)
+    k = torch.floor(torch.log2((end - first).double())).long()
+    tail = end - torch.pow(2, k)
+    return (torch.minimum(table_lo[k, first], table_lo[k, tail]),
+            torch.maximum(table_hi[k, first], table_hi[k, tail]))
+
+
+def refit(accel: Accel, verts, tris) -> Accel:
+    """``accel`` with every box (the fine nodes' and the clusters') the
+    exact bounds of its triangles at the vertices ``verts`` (Vec3 of (V,)),
+    its topology (which triangles each node and cluster holds) kept; ``tris``:
+    the (T,) vertex ids of the triangles' three corners. At the vertices it
+    was built from, the boxes are the build's, value for value. A traversal
+    through a refit tree finds every triangle wherever its vertices moved;
+    only its speed depends on how far they moved."""
+    tlo, thi = _tri_boxes(verts, tris)
+    fine = accel.fine
+    llo = tlo[fine.leaf_tri.long()].amin(1)   # (NL, 3) the leaves' boxes
+    lhi = thi[fine.leaf_tri.long()].amax(1)
+    # in preorder a node's subtree is the nodes [i, node_skip[i]): its
+    # leaves are a run of consecutive leaf ids
+    is_leaf = (fine.node_leaf >= 0).to(torch.int64)
+    before = torch.cat([is_leaf.new_zeros(1), torch.cumsum(is_leaf, 0)])
+    nlo, nhi = _range_boxes(llo, lhi, before[:-1],
+                            before[fine.node_skip.long()])
+    clo = tlo[accel.cl_tri.long()].amin(1)
+    chi = thi[accel.cl_tri.long()].amax(1)
+    return accel._replace(
+        fine=fine._replace(**_columns("node_lo", nlo),
+                           **_columns("node_hi", nhi)),
+        **_columns("cl_lo", clo), **_columns("cl_hi", chi))
+
+
+def _columns(prefix, box):
+    """{prefix_x, prefix_y, prefix_z}: the (N, 3) boxes' columns."""
+    return {f"{prefix}_{a}": box[:, i].contiguous()
+            for i, a in enumerate("xyz")}
+
+
+# ---------------------------------------------------------------------------
 # host-side build tree
 # ---------------------------------------------------------------------------
 

@@ -34,6 +34,7 @@ import torch
 from ..ops.rng import randint, split, uniform_1
 from ..ops.vecmath import (Vec3, dot, fma, fma3, gather, normalized,
                            sqrt, take_clip)
+from ..utils import tracing
 from ..utils.constants import EPS_HIT, MAX_FLOAT, PI_REF
 from ..utils.morton import morton_decode, morton_encode
 
@@ -115,9 +116,12 @@ def _zero_image(n, device):
 
 def _scatter(j, cx, cy, cz, tile_offset, tile_pixels):
     """``zeros(tile_pixels).at[j - tile_offset].add(c, mode="drop")`` with
-    uint32 indices: an entry whose index wraps out of the tile is dropped."""
+    uint32 indices: an entry whose index wraps out of the tile is dropped.
+    The entries kept are counted (``edges.kept``) from the shape the
+    ``nonzero`` already read."""
     jt = (j - int(tile_offset)) & _U32
     keep = torch.nonzero(jt < tile_pixels).flatten()
+    tracing.count("edges.kept", keep.shape[0])
     jk = jt[keep]
     zero = torch.zeros((tile_pixels,), dtype=torch.float32, device=j.device)
     return Vec3(*(zero.index_add(0, jk, c[keep]) for c in (cx, cy, cz)))
@@ -134,7 +138,16 @@ def boundary_image(scene, cam, edges: EdgeTable, radiance_fn, key,
     the rays (its gradient is discarded). ``tile_offset``/``tile_pixels``
     keep the scatter to the Morton range [offset, offset + tile_pixels):
     every tile draws the same samples, so the tiles' images add up to the
-    whole image's."""
+    whole image's. Traced as the span ``diff.edges.primary`` with counters
+    ``edges.drawn`` and ``edges.kept`` (the samples that scatter)."""
+    with tracing.span("diff.edges.primary", samples=int(num_samples)):
+        return _boundary_image(scene, cam, edges, radiance_fn, key,
+                               num_samples, num_pixels, offset_film,
+                               tile_offset, tile_pixels)
+
+
+def _boundary_image(scene, cam, edges, radiance_fn, key, num_samples,
+                    num_pixels, offset_film, tile_offset, tile_pixels):
     E = edges.num_edges
     M = int(num_samples)
     dev = scene.verts.x.device
@@ -143,6 +156,7 @@ def boundary_image(scene, cam, edges: EdgeTable, radiance_fn, key,
     if E == 0:
         # randint over the empty [0, 0): an edge-free mesh has no term
         return _zero_image(tile_pixels, dev)
+    tracing.count("edges.drawn", M)
     ke, ku = split(key, 2)
     eidx = randint(ke, M, 0, E)
     u = uniform_1(ku, M)
@@ -231,7 +245,20 @@ def shadow_boundary_image(scene, cam, edges: EdgeTable, trace_fn,
     with ``branch_pdf_correction``).
 
     ``trace_fn(o, d, mask)`` -> Hit, the closest hit (detached);
-    ``shade_normal_fn(tri)`` -> (normal, albedo) at the hit triangles."""
+    ``shade_normal_fn(tri)`` -> (normal, albedo) at the hit triangles.
+    Traced as the span ``diff.edges.shadow`` with counters ``edges.drawn``
+    and ``edges.kept``."""
+    with tracing.span("diff.edges.shadow", samples=int(num_samples)):
+        return _shadow_boundary_image(
+            scene, cam, edges, trace_fn, shade_normal_fn, key, num_samples,
+            num_pixels, branch_factor, light_normal_mode, vis_eps,
+            offset_area, tile_offset, tile_pixels)
+
+
+def _shadow_boundary_image(scene, cam, edges, trace_fn, shade_normal_fn, key,
+                           num_samples, num_pixels, branch_factor,
+                           light_normal_mode, vis_eps, offset_area,
+                           tile_offset, tile_pixels):
     E = edges.num_edges
     M = int(num_samples)
     L = int(scene.lights.shape[0])
@@ -241,6 +268,7 @@ def shadow_boundary_image(scene, cam, edges: EdgeTable, trace_fn,
     if L == 0 or E == 0:
         # no lights, no NEE term; no edges, randint(0, 0) is undefined
         return _zero_image(tile_pixels, dev)
+    tracing.count("edges.drawn", M)
     kp, ke, ku, kl = split(key, 4)
     pix = randint(kp, M, 0, num_pixels).to(torch.int64) & _U32
     eidx = randint(ke, M, 0, E)

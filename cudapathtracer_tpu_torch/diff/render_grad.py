@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..accel.bvh import refit
 from ..models.scene import Scene, recompute_derived
 from ..ops.intersect import ray_sphere_t_unchecked, ray_triangle_t_unchecked
 from ..ops.rng import fold_in, pixel_keys, sample_key
@@ -94,8 +95,10 @@ def render_image_diff(scene: Scene, cam, cfg: RenderConfig, base_key,
     first, and the trace closure is built from the current (detached)
     vertices on every call, so the packets are gathered again after each
     update. ``bvh`` is the accel structure the engines need (all but
-    ``traversal='brute'``); its topology stays the input scene's, valid for
-    moves that keep the vertices in their leaf boxes. Without ``bvh``, a
+    ``traversal='brute'``); its topology stays the input scene's and its
+    boxes are refit to the current vertices (``accel.bvh.refit``), so the
+    hits are the current geometry's however far the vertices moved (a far
+    move costs speed alone). Without ``bvh``, a
     fine ``trace_data`` (``traversal.make_trace_data``) serves every engine
     but brute force with the per-ray walk, the analytic spheres folded in
     (JAX render_grad.py:123-139); its vertices are the caller's, not the
@@ -114,8 +117,13 @@ def _render_image_diff(scene, cam, cfg, base_key, spp, bvh, trace_data, idx,
     check_supported(cfg)
     scene = recompute_derived(scene)
     dev = scene.verts.x.device
-    # the hit search reads the current geometry, detached: the packets (no
-    # cached prep) and the fine TraceData are built again on every call
+    # the hit search reads the current geometry, detached: the accel's
+    # boxes are refit to it, and the packets (no cached prep) and the fine
+    # TraceData are built again on every call
+    if bvh is not None and cfg.traversal != "brute":
+        with torch.no_grad():
+            bvh = refit(bvh, scene.verts, (scene.tri_v0, scene.tri_v1,
+                                           scene.tri_v2))
     if cfg.traversal != "brute" and bvh is None and trace_data is not None:
         base_trace = make_trace_fn(
             stop_gradient(scene), dataclasses.replace(cfg, traversal="bvh"),
@@ -232,10 +240,11 @@ def make_loss_fn(scene: Scene, cam, cfg: RenderConfig, base_key, spp: int,
     """loss(params, target) -> scalar tensor, differentiable in params.
 
     The boundary terms' edge table is built here, on the host, from the
-    scene's ``host_tris``. As in the JAX package the BVH topology is the
-    input scene's: rebuild it between optimizer steps that move vertices
-    far. ``shadow_edge_samples`` is the sharded train step's second term
-    (JAX parallel/shard.py:make_sharded_grad_fn)."""
+    scene's ``host_tris``. The BVH topology is the input scene's, its boxes
+    refit on every call: rebuild it between optimizer steps that move
+    vertices far for speed, not for the hits. ``shadow_edge_samples`` is
+    the sharded train step's second term (JAX
+    parallel/shard.py:make_sharded_grad_fn)."""
     edge_table = None
     if edge_samples > 0 or shadow_edge_samples > 0:
         edge_table = build_edge_table(scene.host_tris,

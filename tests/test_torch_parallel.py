@@ -294,7 +294,7 @@ def test_all_reduced_grads_match_jax(runs, label):
 
 
 def test_sgd_steps_lower_the_loss(runs):
-    """SGD steps (lr 0.3) toward a target lit 1.5x brighter lower the
+    """SGD steps (lr 0.03) toward a target lit 1.5x brighter lower the
     all-reduced loss at every step and brighten the light (material 3);
     the ranks' updates run replicated and stay equal."""
     r0, r1 = runs["ranks"]["grad"]

@@ -3,8 +3,8 @@ utils/tracing.py) on the CPU: how they nest on a PT+NEE and a BDPT render
 through the packet engine, the packet engine's ray counts against a count
 of the masks taken here, tracing off (nothing kept, no range in a
 profiler capture, the same image bit for bit), the spans' ranges inside a
-profiler capture, and the differentiable pass's recompute in autograd's
-backward."""
+profiler capture, the differentiable pass's recompute in autograd's
+backward, and its boundary terms' spans and edge-sample counts."""
 
 import threading
 import time
@@ -16,6 +16,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import cudapathtracer_tpu_torch as cpt
 from cudapathtracer_tpu_torch.diff import render_grad as rg
+from cudapathtracer_tpu_torch.diff.edge_sampling import build_edge_table
 from cudapathtracer_tpu_torch.models import procedural
 from cudapathtracer_tpu_torch.ops import packets
 from cudapathtracer_tpu_torch.ops.rng import prng_key
@@ -240,3 +241,52 @@ def test_off_span_and_count_do_nothing():
     assert [r.name for r in tracing.records()] == ["kept"]
     tracing.enable(True)
     assert tracing.records() == []
+
+
+def test_the_boundary_terms_are_spans_with_their_counts():
+    """The primary and shadow boundary terms of a step: one span each under
+    the step's ``diff.forward`` root (attribute ``samples``), each with its
+    ``edges.drawn`` and ``edges.kept`` counts; the image and the gradients
+    bit for bit those of the untraced step."""
+    M = 512
+    scene = procedural.to_scene(procedural.cornell_box(), "cpu")
+    cam = cpt.make_camera(width=16, height=16, device="cpu")
+    cfg = cpt.RenderConfig(width=16, height=16, spp=1, integrator="pt_nee",
+                           samples_per_call=1)
+    bvh = renderer.build_bvh_for_scene(scene, 4)
+    table = build_edge_table(scene.host_tris, device="cpu")
+    with torch.no_grad():
+        target = rg.render_image_diff(scene, cam, cfg, prng_key(99, "cpu"),
+                                      1, bvh=bvh)
+
+    def step():
+        params = rg.targets_of(scene)
+        img = rg.render_image_diff(rg.scene_with(scene, params), cam, cfg,
+                                   prng_key(3, "cpu"), 1, bvh=bvh,
+                                   edge_samples=M, edge_table=table,
+                                   shadow_edge_samples=M)
+        grads = torch.autograd.grad(rg.l2_loss(img, target),
+                                    rg.target_leaves(params),
+                                    allow_unused=True)
+        return [t.detach() for t in img] + [g for g in grads
+                                            if g is not None]
+
+    plain = step()
+    tracing.enable(True)
+    traced = step()
+    recs = tracing.records()
+    tracing.enable(False)
+    assert len(plain) == len(traced) == 3 + 9
+    for a, b in zip(plain, traced):
+        assert torch.equal(a, b)
+    roots = [r for r in recs if r.name == "diff.forward"]
+    assert len(roots) == 1 and roots[0].parent is None
+    for name in ("diff.edges.primary", "diff.edges.shadow"):
+        (sp,) = [r for r in recs if r.name == name]
+        assert sp.kind == "span" and sp.parent == roots[0].id
+        assert sp.attrs["samples"] == sp.attrs["edges.drawn"] == M
+        assert 0 < sp.attrs["edges.kept"] <= M
+        counts = {c.name: c.n for c in recs
+                  if c.kind == "count" and c.parent == sp.id}
+        assert counts == {"edges.drawn": M,
+                          "edges.kept": sp.attrs["edges.kept"]}
