@@ -30,6 +30,14 @@ them:
    hold the card's time alone) and on the host (the time to enqueue a call),
    beside the bound, 16 bytes an element. Every render path below must
    launch it beside its fold kernel;
+4c. threefry: the RNG's kernel (csrc/threefry.cu) against its plain
+   version, the int64 hash, bit for bit, at the cells' shapes
+   THREEFRY_SHAPES (uniform_sites over R keys and n rows, pixel_keys over
+   R keys, and one key's 65,536 draws of uniform_1 and randint's split
+   and draws), timed as step 4b times the FMA (card and host us a call,
+   the plain version beside it) with the bound, the larger of its integer
+   work (HASH_OPS a hash) and its bytes. Every render path below must
+   launch it too;
 5. headline (resident route, K1): colonnade subdiv 3 (20,884 triangles,
    adaptive C = 256, P = 256). On the primary batch and a sorted bounce
    batch of a real pt_nee sample: K1 against its plain version on the
@@ -378,6 +386,22 @@ PEAK_F32_PER_S = 67e12
 FMA_SIZES = (1_048_576, 262_144, 65_536)
 FMA_BITS_N = 2 ** 22
 FMA_REPS = 100
+# the RNG's calls at the cells' lane counts: (call, keys, counters); int32
+# operations a threefry2x32 hash (20 rounds of add, rotate and xor, 5 key
+# injections of 2 adds, the first 2 adds, the third key word) and the
+# integer pipe's rate (64 a clock on each of 132 SMs at 1.98 GHz)
+THREEFRY_SHAPES = (("uniform_sites", 1_048_576, 6),
+                   ("uniform_sites", 262_144, 7),
+                   ("uniform_sites", 65_536, 6),
+                   ("pixel_keys", 1_048_576, 1),
+                   ("uniform_1", 1, 65_536),
+                   ("randint", 1, 65_536))
+THREEFRY_REPS = 100
+THREEFRY_PLAIN_REPS = 10
+HASH_OPS = 73
+PEAK_INT32_PER_S = 132 * 64 * 1.98e9
+# the glue's kernels, which launch beside every path's fold kernel
+GLUE_KERNELS = ("fma", "threefry")
 
 
 def image_rule(label, got, want, tol=2, max_frac=0.005):
@@ -661,16 +685,19 @@ def reset_counts(kernels):
 
 def path_counts(label, kernels, expect):
     """-> (launches by kernel, plain calls) since ``reset_counts``; raises
-    unless ``expect`` launched, with the glue's FMA kernel where
-    ``kernels`` lists it, and no other kernel nor plain version ran."""
+    unless ``expect`` launched, with the glue's kernels (FMA, threefry)
+    where ``kernels`` lists them, and no other kernel nor plain version
+    ran."""
     launches = {n: w.launches for n, (_, w, _) in kernels.items()}
     plain_calls = sum(p.calls for _, _, p in kernels.values())
-    others = sum(v for n, v in launches.items() if n not in (expect, "fma"))
-    if launches[expect] <= 0 or launches.get("fma", 1) <= 0 or others \
+    others = sum(v for n, v in launches.items()
+                 if n != expect and n not in GLUE_KERNELS)
+    if launches[expect] <= 0 or any(launches.get(n, 1) <= 0
+                                    for n in GLUE_KERNELS) or others \
             or plain_calls:
         raise AssertionError(f"{label}: the path did not run through "
-                             f"{expect} and the FMA alone: {launches}, "
-                             f"{plain_calls} plain calls")
+                             f"{expect} and the glue's kernels alone: "
+                             f"{launches}, {plain_calls} plain calls")
     return launches, plain_calls
 
 
@@ -703,6 +730,8 @@ def render_windows(label, kernels, expect, run, cfg, spp, windows):
           + " ".join(f"{n}_launches={v}" for n, v in launches.items())
           + f" launches_per_sample={launches[expect] / (windows * spp):.2f}"
           f" fma_launches_per_sample={launches['fma'] / (windows * spp):.2f}"
+          " threefry_launches_per_sample="
+          f"{launches['threefry'] / (windows * spp):.2f}"
           f" fma_expanded={kernels['fma'][1].expanded}"
           f" plain_calls={plain_calls}")
     if img.shape != (cfg.num_pixels, 3) or not finite or img.max() <= 0:
@@ -825,6 +854,67 @@ def fma_phase(dev):
                 library_ms=us["library"][0] / 1e3,
                 library_host_us=us["library"][1],
                 library_differs=lib_differ, bound_ms=bound_us / 1e3)
+    return rows
+
+
+def threefry_call(name, R, n, dev, seed):
+    """-> (the call for ``name`` over R random keys and n counters, the
+    bytes it moves, the hashes it makes)."""
+    from cudapathtracer_tpu_torch.ops import rng
+
+    g = torch.Generator().manual_seed(seed)
+    keys = torch.randint(0, 2**32, (R, 2), generator=g,
+                         dtype=torch.int64).to(dev)
+    if name == "uniform_sites":
+        group = rng.SiteGroups.PT_BOUNCE if n == 6 else rng.SiteGroups.BDPT
+        return (lambda: rng.uniform_sites(keys, group, n, bounce=1),
+                16 * R + 4 * R * n, R * (1 + n))
+    if name == "pixel_keys":
+        idx = torch.arange(R, dtype=torch.int64, device=dev)
+        return lambda: rng.pixel_keys(keys[0], idx), 24 * R, R
+    if name == "uniform_1":
+        return lambda: rng.uniform_1(keys[0], n), 4 * n, n
+    # randint: split in two, then 32 bits of each key for every draw
+    return (lambda: rng.randint(keys[0], n, 0, 30_786), 32 + 16 * n,
+            2 + 2 * n)
+
+
+def threefry_phase(dev):
+    """Step 4c: the RNG's kernel against its plain version (the int64
+    hash), bit for bit, and both timed at the cells' shapes. -> {"<call>/
+    <keys>/<counters>": its numbers}."""
+    from cudapathtracer_tpu_torch.ops import rng
+
+    rows = {}
+    for name, R, n in THREEFRY_SHAPES:
+        fn, nbytes, hashes = threefry_call(name, R, n, dev, R + n)
+        got = fn()
+        on_card = rng._on_card
+        rng._on_card = lambda keys: False
+        try:
+            want = fn()
+            plain = card_and_host_us(fn, THREEFRY_PLAIN_REPS)
+        finally:
+            rng._on_card = on_card
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        differ = int((got != want).sum()) + abs(got.numel() - want.numel())
+        kernel = card_and_host_us(fn, THREEFRY_REPS)
+        bound = max((hashes * HASH_OPS / PEAK_INT32_PER_S * 1e6, "integer"),
+                    (nbytes / PEAK_BYTES_PER_S * 1e6, "bytes"))
+        print(f"threefry: call={name} keys={R} counters={n} "
+              f"kernel_differs={differ} (of {want.numel()}) "
+              f"kernel_card_us={kernel[0]:.3f} kernel_host_us="
+              f"{kernel[1]:.2f} plain_card_us={plain[0]:.3f} plain_host_us="
+              f"{plain[1]:.2f} bound_us={bound[0]:.3f} ({bound[1]})")
+        if differ:
+            raise AssertionError(f"threefry: {name} over {R} keys x {n}: "
+                                 "the kernel's bits differ from its plain "
+                                 "version's")
+        rows[f"{name}/{R}/{n}"] = dict(
+            ms=kernel[0] / 1e3, host_us=kernel[1], plain_ms=plain[0] / 1e3,
+            plain_host_us=plain[1], bound_ms=bound[0] / 1e3,
+            bound_by=bound[1])
     return rows
 
 
@@ -1040,7 +1130,7 @@ def train_phase(dev, kernels, size=TRAIN_SIZE,
         launches = k1_wrap.launches
         plain_calls = sum(pl.calls for _, _, pl in kernels.values())
         others = sum(w.launches for n, (_, w, _) in kernels.items()
-                     if n not in ("k1", "fma"))
+                     if n != "k1" and n not in GLUE_KERNELS)
         fwd, rec = log.split()
         same_ids = len(rec) > 0 and all(
             torch.equal(i_r, i_f) for (_, i_r), (_, i_f) in zip(rec, fwd))
@@ -2609,6 +2699,7 @@ def main():
     from cudapathtracer_tpu_torch.ops.kernels import dense_resident as k1
     from cudapathtracer_tpu_torch.ops.kernels import dense_super as k3
     from cudapathtracer_tpu_torch.ops.kernels import fma as kfma
+    from cudapathtracer_tpu_torch.ops.kernels import threefry as kt
     from cudapathtracer_tpu_torch.ops.kernels.dense_resident import (
         intersector_of)
     from cudapathtracer_tpu_torch.ops.kernels.work import (OPS_PER_TEST,
@@ -2628,6 +2719,7 @@ def main():
         "k3": (k3.build, k3.dense_intersect_super,
                k3.dense_intersect_super_plain),
         "fma": (kfma.build, kfma.fma, kfma.fma_plain),
+        "threefry": (kt.build, kt.threefry, kt.threefry_plain),
     }
 
     # ---- 2. build: every nvcc and the BVH builder at once ------------------
@@ -2716,12 +2808,15 @@ def main():
           + " ".join(f"{n}_launches={v}" for n, v in launched.items())
           + f" plain_calls={plain_calls}")
     if not (same and lit) or plain_calls or any(
-            v for n, v in launched.items() if n != "fma"):
+            v for n, v in launched.items() if n not in GLUE_KERNELS):
         raise AssertionError("the bvh and brute engines' images differ, or "
                              "a fold kernel ran")
 
     # ---- 4b. fma: the glue's FMA kernel against its plain version ----------
     fma_rows = fma_phase(dev)
+
+    # ---- 4c. threefry: the RNG's kernel against its plain version ---------
+    threefry_rows = threefry_phase(dev)
 
     def setup(label, subdiv, size=HEADLINE_SIZE, integrator="pt_nee",
               **cfg_kw):
@@ -3132,6 +3227,18 @@ def main():
                     "bound_ms": head["bound_ms"], "bound_by": "bytes",
                     "library": "torch.addcmul",
                     "library_ms": head["library_ms"], "sizes": fma_rows})
+                head = threefry_rows[f"uniform_sites/{HEADLINE_SIZE ** 2}/6"]
+                entries.append({
+                    "name": "threefry", "route": "cuda",
+                    "source": "cudapathtracer_tpu_torch/csrc/threefry.cu",
+                    "replaces": None, "launches": launches["threefry"],
+                    "launches_per_sample": launches["threefry"]
+                    / (vwin * vspp),
+                    "max_abs_err": 0.0, "ms": head["ms"],
+                    "plain_ms": head["plain_ms"],
+                    "bound_ms": head["bound_ms"],
+                    "bound_by": head["bound_by"], "library": None,
+                    "library_ms": None, "sizes": threefry_rows})
             entries.append(kernel_entry(
                 f"{name}/{lab}" if want == "k1" else name, source, replaces,
                 launches[want], res))

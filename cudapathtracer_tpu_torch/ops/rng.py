@@ -14,36 +14,26 @@ The bits follow ``jax.random`` with 64-bit mode off and
 * ``uniform(key, (n,))`` hashes the counters ``(0, i)``, xors the two output
   words, keeps the top 23 bits as a mantissa in [1, 2) and subtracts 1.
 
-Keys are int64 tensors of shape (..., 2). The uint32 arithmetic runs in
-int64 masked with 0xFFFFFFFF, since torch's uint32 supports few operations.
+Keys are int64 tensors of shape (..., 2). On CUDA keys each call below is
+one launch of a CUDA kernel (``kernels/threefry.py``); on CPU keys the
+uint32 arithmetic runs in int64 masked with 0xFFFFFFFF
+(``kernels/threefry.py:threefry_plain``), since torch's uint32 supports few
+operations. Both give the same bits.
 """
 
 from __future__ import annotations
 
 import torch
 
-_MASK = 0xFFFFFFFF
-_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+from .kernels import threefry as _k
+from .kernels.threefry import MASK as _MASK
+from .kernels.threefry import threefry_plain as threefry2x32
 
 
-def _rotl(v, r):
-    return ((v << r) | (v >> (32 - r))) & _MASK
-
-
-def threefry2x32(k0, k1, x0, x1):
-    """20-round Threefry-2x32 on broadcastable int64 tensors holding uint32
-    values (Salmon et al. 2011; the schedule of jax.random's threefry)."""
-    k2 = k0 ^ k1 ^ 0x1BD11BDA
-    ks = (k0, k1, k2)
-    x0 = (x0 + k0) & _MASK
-    x1 = (x1 + k1) & _MASK
-    for i in range(5):
-        for r in _ROT[i % 2]:
-            x0 = (x0 + x1) & _MASK
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
-        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK
-    return x0, x1
+def _on_card(keys) -> bool:
+    """Whether the kernel serves ``keys``: CUDA tensors take it, CPU
+    tensors the plain int64 code."""
+    return keys.is_cuda
 
 
 def prng_key(seed: int, device) -> torch.Tensor:
@@ -56,6 +46,8 @@ def prng_key(seed: int, device) -> torch.Tensor:
 def fold_in(keys, data):
     """``jax.random.fold_in`` over a (..., 2) key batch; ``data`` is an int
     or an integer tensor broadcastable to the batch."""
+    if _on_card(keys):
+        return _k.threefry(keys, last=data)
     if not torch.is_tensor(data):
         data = torch.tensor(data, dtype=torch.int64, device=keys.device)
     data = data.to(torch.int64) & _MASK
@@ -67,6 +59,8 @@ def fold_in(keys, data):
 def uniform(keys, n: int):
     """``jax.random.uniform(key, (n,), float32)`` for each key of a (R, 2)
     batch -> (R, n) in [0, 1)."""
+    if _on_card(keys):
+        return _k.threefry(keys, n=n, kind=_k.UNIFORM)
     i = torch.arange(n, dtype=torch.int64, device=keys.device)
     y0, y1 = threefry2x32(keys[:, 0:1], keys[:, 1:2], torch.zeros_like(i), i)
     bits = (y0 ^ y1) >> 9 | 0x3F800000
@@ -77,6 +71,8 @@ def split(key, n: int):
     """``jax.random.split(key, n)`` of one (2,) key -> (n, 2): key i is
     threefry2x32 of the counters (0, i) (``_threefry_split_foldlike``,
     jax/_src/prng.py, under ``jax_threefry_partitionable``)."""
+    if _on_card(key):
+        return _k.threefry(key, n=n)
     i = torch.arange(n, dtype=torch.int64, device=key.device)
     y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(i), i)
     return torch.stack([y0, y1], dim=-1)
@@ -85,6 +81,8 @@ def split(key, n: int):
 def _bits32(key, n: int):
     """``jax.random.bits(key, (n,), uint32)``: the xor of the two threefry
     words of the counters (0, i)."""
+    if _on_card(key):
+        return _k.threefry(key, n=n, kind=_k.XOR)
     i = torch.arange(n, dtype=torch.int64, device=key.device)
     y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(i), i)
     return y0 ^ y1
@@ -126,6 +124,9 @@ def pixel_keys(skey, idx):
 
 def uniform_site(keys, site: int, bounce=None):
     """(0, 1] uniforms, one per key (the ``1 - u`` map of rng.py:61)."""
+    if _on_card(keys):
+        words = (site,) if bounce is None else (site, bounce)
+        return _k.threefry(keys, words, n=1, kind=_k.ONE_MINUS_UNIFORM)[:, 0]
     kk = fold_in(keys, site)
     if bounce is not None:
         kk = fold_in(kk, bounce)
@@ -134,7 +135,11 @@ def uniform_site(keys, site: int, bounce=None):
 
 def uniform_sites(keys, group: int, n: int, bounce=0):
     """n independent (0, 1] uniforms per key from one fold of the word
-    ``group * 1024 + bounce`` -> (n, R)."""
+    ``group * 1024 + bounce`` -> (n, R) (on the card contiguous, row by
+    row)."""
+    if _on_card(keys):
+        return _k.threefry(keys, (group * 1024 + bounce,), n=n,
+                           kind=_k.ONE_MINUS_UNIFORM, by_counter=True)
     kk = fold_in(keys, group * 1024 + bounce)
     return 1.0 - uniform(kk, n).T
 
