@@ -26,7 +26,8 @@
 // On one H100 80GB HBM3 at a 700 W limit it takes 2.31-2.39 ms on the
 // subdiv-6 bounce batch, where the ray-stationary fold took 13.40 ms on the
 // same shortlists and this kernel took 13.73 before (18% of its operations
-// bound), and 1.93-1.95 ms on the primary batch (chip_smoke.py, PERF.md).
+// bound), and 1.93-1.95 ms on the primary batch (tools/time_kernels.py,
+// PERF.md).
 // K1 now runs this kernel's code (gated_fold.cuh:gated_tile) in blocks of at
 // most 128 rays, so at P = 128 the two are one launch; both keep the plain
 // fold's result bit for bit. Its visibility instance (vis_band > 0) is the

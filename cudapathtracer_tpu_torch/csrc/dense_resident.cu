@@ -27,7 +27,7 @@
 // halves the warps each barrier waits for, and the tile's two halves stop
 // at their own depth; at P = 128 (subdiv 5) the launch is K2's.
 //
-// tools/tune_gated_fold.py times this kernel against K2's in turns (one
+// Timed alone against K2's kernel in turns (tools/time_kernels.py; one
 // H100 80GB HBM3, 700 W; PERF.md): blocks of 128 rays were 1.19x and 1.12x
 // faster than K2's block per tile on the subdiv-3 primary and bounce
 // batches, 1.13x and 1.03x at subdiv 4, and K2's own launch at subdiv 5.

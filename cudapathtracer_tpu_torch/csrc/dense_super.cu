@@ -33,7 +33,7 @@
 // On one H100 80GB HBM3 at a 700 W limit it takes 1.18 ms on the subdiv-5
 // bounce batch, where K1 takes 5.34 ms on the flat shortlists of the same
 // rays and this kernel took 6.12 before (8% of its operations bound), and
-// 0.66 ms on the primary batch (K1 1.04; chip_smoke.py, PERF.md). Its
+// 0.66 ms on the primary batch (K1 1.04; tools/time_kernels.py, PERF.md). Its
 // visibility instance (vis_band > 0) is _make_kernel_super's vis_band mode
 // (dense_resident.py:699-703), gated_fold.cuh's note: a ray that retires
 // inside a super gates again at -3e38 and passes no further member.

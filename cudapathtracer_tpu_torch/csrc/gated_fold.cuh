@@ -47,7 +47,7 @@
 // Occupancy: the wrappers build it with at most 64 registers a thread
 // (ops/kernels/dense_resident.py:GATED_FOLD_FLAGS), so an SM holds 1024
 // threads; uncapped, K3 took 82 and fit two blocks of 256 on an SM, and ran
-// 1.3-1.7x slower, and K1 1.2-1.3x (tools/tune_gated_fold.py, one H100
+// 1.3-1.7x slower, and K1 1.2-1.3x (tools/time_kernels.py, one H100
 // 80GB HBM3, 700 W).
 //
 // Members are folded in order and gated with the t each ray has after the

@@ -82,8 +82,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # The gated fold builds with at most 64 registers a thread, so an SM holds
 # 1024 of its threads; uncapped, K3 takes 82 and fits 2 blocks of 256. On
 # one H100 80GB HBM3 (700 W) the cap made K3 1.3-1.7x, K2 1.06-1.08x and K1
-# 1.2-1.3x faster at chip_smoke.py's shapes, for 16-88 bytes of stack
-# (tools/tune_gated_fold.py).
+# 1.2-1.3x faster on the sorted batches of colonnade subdiv 3 to 6, for
+# 16-88 bytes of stack (each kernel timed alone; tools/time_kernels.py).
 GATED_FOLD_FLAGS = ["-maxrregcount=64"]
 # K1 folds a tile in blocks of at most this many rays (csrc/
 # dense_resident.cu:kBlockRays), each with its own votes and gates.

@@ -1,6 +1,7 @@
 """What the dense fold kernels' inputs need of them, as a lower bound: the
-yardstick for their times (the bound that ``chip_smoke.py`` computes) and for
-their counting instances (lane tests issued against tests needed).
+yardstick for their times (the bound that ``tools/time_kernels.py``
+prints) and for their counting instances (lane tests issued against tests
+needed).
 
 A ray needs a test of every real triangle (an id below the triangle count,
 and a normal e1 x e2 that is not zero: a degenerate triangle never hits) of

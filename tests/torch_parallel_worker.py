@@ -12,7 +12,8 @@ builds the references, the JAX package's included, and compares. Jobs:
   gathered into the whole image;
 * ``grad``: ``make_sharded_grad_fn`` at 16^2 pt_nee 1 spp against a key-9
   target, interior and with both boundary terms at 256 samples each; three
-  SGD steps (lr 0.03) toward a target with a 1.5x brighter light; one step
+  SGD steps (lr 0.03) toward a target with a 1.5x brighter light (the
+  parameters after the first kept); one step
   of a ``torch.optim.Adam`` factory (lr 1e-3) on the interior inputs;
 * ``checkpoint``: a 16^2 pt_nee render (samples_per_call 2) saved sharded at
   2 spp, loaded and resumed to 4, gathered; a set whose ranks saved
@@ -125,9 +126,12 @@ def job_grad(mesh, out, out_dir):
     sgd = shard.make_train_step(scene, cam, cfg, mesh, 1, bvh=bvh,
                                 learning_rate=SGD_LR)
     params, losses = rg.targets_of(scene), []
-    for _ in range(SGD_STEPS + 1):
+    for step in range(SGD_STEPS + 1):
         loss, params, _ = sgd(params, None, bright, key)
         losses.append(float(loss))
+        if step == 0:
+            for i, t in enumerate(rg.target_leaves(params)):
+                out[f"sgd_first_p{i}"] = t.cpu().numpy()
     out["sgd_losses"] = np.asarray(losses)
     out["sgd_emission_x"] = params.emission.x.cpu().numpy()
 
