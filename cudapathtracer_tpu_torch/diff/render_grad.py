@@ -15,10 +15,14 @@ estimator exactly. Two boundary terms (diff/edge_sampling.py) add the
 silhouette motion of primary visibility (``edge_samples``) and of the NEE
 shadow (``shadow_edge_samples``) as value-zero images.
 
-Each sample is one ``torch.utils.checkpoint`` (the JAX package's
-``jax.checkpoint`` inside ``lax.scan``): its graph is freed after the
-forward and rebuilt in the backward, so the backward holds one sample's
-graph, and the sample's traces run twice. The samples are summed in order
+Every sample but the last is one ``torch.utils.checkpoint`` (the JAX
+package's ``jax.checkpoint`` inside ``lax.scan``): its graph is freed after
+the forward and rebuilt in the backward, where its traces run again. The
+last sample keeps its graph: autograd reaches it first and frees it before
+it recomputes any earlier sample, so the backward still holds one sample's
+graph at a time, and a call of 1 spp traces each ray once. Where boundary
+terms run, their graph is built while the last sample's is alive, so the
+peak rises by at most one sample's graph. The samples are summed in order
 and scaled by 1/spp, as the scan does. The gradients use the primal's
 sample keys (common random numbers), so finite differences of the loss
 converge to them.
@@ -84,12 +88,19 @@ def make_diff_trace_fn(scene: Scene, base_trace_fn):
     return diff_trace
 
 
+def _checkpointed(s: int, spp: int) -> bool:
+    """Whether sample ``s`` of ``spp`` is checkpointed: all but the
+    last."""
+    return s < spp - 1
+
+
 def render_image_diff(scene: Scene, cam, cfg: RenderConfig, base_key,
                       spp: int, bvh=None, trace_data=None, idx=None,
                       edge_samples: int = 0, edge_table=None,
                       shadow_edge_samples: int = 0) -> Vec3:
     """The differentiable image, (R,) Vec3 in Morton order: the mean of
-    ``spp`` samples, each checkpointed, plus the boundary terms.
+    ``spp`` samples, all but the last checkpointed, plus the boundary
+    terms.
 
     The scene's normals and light area are recomputed from its vertices
     first, and the trace closure is built from the current (detached)
@@ -145,12 +156,22 @@ def _render_image_diff(scene, cam, cfg, base_key, spp, bvh, trace_data, idx,
 
     acc = Vec3.zeros((r,), dev)
     for s in range(spp):
-        # the randoms are counters, so the recompute needs no RNG state;
-        # the backward's run of the sample is the span diff.recompute
-        acc = acc + Vec3(*checkpoint(
-            one_sample, s, use_reentrant=False, preserve_rng_state=False,
-            context_fn=lambda: (nullcontext(),
-                                tracing.span("diff.recompute", sample=s))))
+        if _checkpointed(s, spp):
+            # the randoms are counters, so the recompute needs no RNG
+            # state; the backward's run of the sample is the span
+            # diff.recompute
+            sample = checkpoint(
+                one_sample, s, use_reentrant=False, preserve_rng_state=False,
+                context_fn=lambda: (nullcontext(), tracing.span(
+                    "diff.recompute", sample=s)))
+        else:
+            # the last sample's graph is backpropagated and freed before
+            # any earlier sample is recomputed, so keeping it holds the
+            # peak at one sample's graph; the boundary terms below build
+            # theirs beside it, at most one sample's graph more
+            tracing.count("diff.kept_graphs", 1)
+            sample = one_sample(s)
+        acc = acc + Vec3(*sample)
     img = acc * (1.0 / spp)
 
     # every tile draws the same global edge samples and scatters only those

@@ -21,9 +21,11 @@ runs the card tests is in tests/torch_card_helpers.py.
 * the capped two-level cull's hits against the flat cull's;
 * ``vis_dropout``, ``sample_batch`` 2, straggler rounds and a sort window,
   each rendering the default's image bit for bit;
-* the train step at 64^2 and at the cells' 256^2 (K1 once per trace call
-  of the forward and of the recompute, the recompute's hits the
-  forward's, a repeat's gradients), a finite difference,
+* the train step at 64^2 and at the cells' 256^2 (at 1 spp no recompute
+  and K1 once per trace call of the forward, a repeat's gradients; at 2
+  spp sample 0 alone recomputed, its hits the forward's; at 256^2 and 4
+  spp the peak memory of the kept last graph against every sample
+  checkpointed), a finite difference,
   ``render_and_grad`` against the CPU, BDPT's step;
 * ``entry()`` against ``entry("cpu")``, and each quirk flag against the
   same render on the CPU.
@@ -80,6 +82,8 @@ REPEAT_FRAC = 1e-5
 # edge samples of each boundary term there
 TRAIN_SIZE = 256
 TRAIN_EDGE_SAMPLES = 16384
+# samples a step of the peak-memory case: three checkpointed, one kept
+MEMORY_SPP = 4
 
 
 def bits(st):
@@ -740,10 +744,10 @@ def grads_close(got, want, frac):
     (TRAIN_SIZE, TRAIN_EDGE_SAMPLES)],
     ids=["interior", "both_terms", "interior_256", "both_terms_256"])
 def test_train_step_on_the_card(dev, train_setups, size, edge_samples):
-    """K1 launched once for each trace call of the forward and of the
-    per-sample recompute and nothing else; the recompute's hit ids the
-    forward's bit for bit; the loss and every gradient finite; a repeat's
-    gradients within REPEAT_FRAC of each array's largest |g|."""
+    """At 1 spp nothing is recomputed: the sample keeps its graph, and K1
+    is launched once for each trace call of the forward and nothing else;
+    the loss and every gradient finite; a repeat's gradients within
+    REPEAT_FRAC of each array's largest |g|."""
     scene, cam, cfg, bvh, target = train_setups(size)
     loss_fn = rg.make_loss_fn(scene, cam, cfg, prng_key(1234, dev), 1,
                               bvh=bvh, edge_samples=edge_samples,
@@ -754,13 +758,76 @@ def test_train_step_on_the_card(dev, train_setups, size, edge_samples):
         loss, grads = sgd_step(scene, target, loss_fn, log)
     diff = launched(before, "k1")
     fwd, rec = log.split()
-    # the sample's traces run again in the backward; the boundary terms'
-    # run once, outside the checkpoint
-    assert rec and diff["k1_launches"] == len(fwd) + len(rec)
-    assert all(torch.equal(a[0], b[0]) for a, b in zip(rec, fwd))
+    # the last (here the only) sample keeps its graph, and the boundary
+    # terms run outside any checkpoint: every ray is traced once
+    assert fwd and not rec and diff["k1_launches"] == len(fwd)
     assert bool(torch.isfinite(loss)) and all(
         bool(torch.isfinite(g).all()) for g in grads)
     grads_close(sgd_step(scene, target, loss_fn)[1], grads, REPEAT_FRAC)
+
+
+def test_train_step_recomputes_all_but_the_last_sample(dev, train_setup):
+    """At 2 spp sample 0 alone runs again in the backward: K1 launched once
+    for each trace call of the forward and of that recompute, the
+    recompute's calls sample 0's, their hit ids the forward's bit for
+    bit."""
+    scene, cam, cfg, bvh, target = train_setup
+    loss_fn = rg.make_loss_fn(scene, cam, cfg, prng_key(1234, dev), 2,
+                              bvh=bvh)
+    sgd_step(scene, target, loss_fn)               # warm-up
+    before = kernel_counts()
+    with TraceLog() as log:
+        sgd_step(scene, target, loss_fn, log)
+    diff = launched(before, "k1")
+    fwd, rec = log.split()
+    assert 0 < len(rec) < len(fwd)
+    assert diff["k1_launches"] == len(fwd) + len(rec)
+    # sample 0 traced first in the forward
+    assert all(torch.equal(a[0], b[0]) for a, b in zip(rec, fwd))
+
+
+@pytest.mark.parametrize("edge_samples", [0, TRAIN_EDGE_SAMPLES],
+                         ids=["interior", "both_terms"])
+def test_kept_graph_peak_memory(dev, train_setups, monkeypatch,
+                                edge_samples):
+    """256^2 at MEMORY_SPP spp: a step's peak device memory above what it
+    starts with, the last sample's graph kept, against every sample
+    checkpointed. Without boundary terms within 2%; with both, at most one
+    sample's graph higher (the bytes the kept graph holds after the
+    forward)."""
+    scene, cam, cfg, bvh, target = train_setups(TRAIN_SIZE)
+    loss_fn = rg.make_loss_fn(scene, cam, cfg, prng_key(1234, dev),
+                              MEMORY_SPP, bvh=bvh,
+                              edge_samples=edge_samples,
+                              shadow_edge_samples=edge_samples)
+
+    def held():
+        """Bytes the forward leaves allocated for the backward."""
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        loss = loss_fn(rg.targets_of(scene), target)  # noqa: F841
+        torch.cuda.synchronize(dev)
+        return torch.cuda.memory_allocated(dev) - base
+
+    def peak():
+        sgd_step(scene, target, loss_fn)           # warm-up
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        sgd_step(scene, target, loss_fn)
+        torch.cuda.synchronize(dev)
+        return torch.cuda.max_memory_allocated(dev) - base
+
+    kept = peak(), held()
+    monkeypatch.setattr(rg, "_checkpointed", lambda s, spp: True)
+    checked = peak(), held()
+    graph = kept[1] - checked[1]
+    assert graph > 0, (kept, checked)
+    if edge_samples:
+        assert kept[0] <= checked[0] + graph, (kept, checked)
+    else:
+        assert abs(kept[0] - checked[0]) <= 0.02 * checked[0], (kept,
+                                                                checked)
 
 
 def test_finite_difference_on_the_card(dev, train_setup):

@@ -367,19 +367,40 @@ def cornell():
     return Case("cornell")
 
 
-def _grads(c, monkeypatch=None, **kw):
+def _grads(c, spp, **kw):
     target = Vec3(*(torch.full((64,), 0.3) for _ in range(3)))
     return rg.render_and_grad(c.ts, c.tcam, c.tcfg, prng_key(0, "cpu"),
-                              c.spp, target, bvh=c.tb, **kw)
+                              spp, target, bvh=c.tb, **kw)
 
 
-def test_checkpoint_matches_unchecked_bitwise(cornell, monkeypatch):
-    """The per-sample recompute changes no bit of the loss or the
-    gradients."""
-    loss, g = _grads(cornell)
-    monkeypatch.setattr(rg, "checkpoint",
-                        lambda fn, *a, **kw: fn(*a))
-    loss0, g0 = _grads(cornell)
+@pytest.mark.parametrize("form", ["unchecked", "all_checkpointed"])
+@pytest.mark.parametrize("spp,terms", [(1, 0), (2, 0), (3, 0), (2, 256)],
+                         ids=["spp1", "spp2", "spp3", "spp2_both_terms"])
+def test_checkpoint_matches_unchecked_bitwise(cornell, monkeypatch, spp,
+                                              terms, form):
+    """The checkpoint policy (every sample but the last recomputed in the
+    backward, the last keeping its graph) changes no bit of the loss or
+    the gradients: against every sample unchecked, and against every
+    sample checkpointed."""
+    kw = dict(edge_samples=terms, shadow_edge_samples=terms)
+    calls = []
+    real = rg.checkpoint
+
+    def counted(fn, *a, **k):
+        calls.append(a[0])
+        return real(fn, *a, **k)
+
+    monkeypatch.setattr(rg, "checkpoint", counted)
+    loss, g = _grads(cornell, spp, **kw)
+    assert calls == list(range(spp - 1))
+    if form == "unchecked":
+        monkeypatch.setattr(rg, "checkpoint", lambda fn, *a, **k: fn(*a))
+    else:
+        calls.clear()
+        monkeypatch.setattr(rg, "_checkpointed", lambda s, n: True)
+    loss0, g0 = _grads(cornell, spp, **kw)
+    if form == "all_checkpointed":
+        assert calls == list(range(spp))
     assert float(loss) == float(loss0)
     for a, b in zip(rg.target_leaves(g), rg.target_leaves(g0)):
         assert torch.equal(a, b)

@@ -4,7 +4,8 @@ through the packet engine, the packet engine's ray counts against a count
 of the masks taken here, tracing off (nothing kept, no range in a
 profiler capture, the same image bit for bit), the spans' ranges inside a
 profiler capture, the differentiable pass's recompute in autograd's
-backward, and its boundary terms' spans and edge-sample counts."""
+backward and its kept graph, and its boundary terms' spans and edge-sample
+counts."""
 
 import threading
 import time
@@ -165,12 +166,17 @@ def test_each_range_inside_its_record(runs):
     assert not [n for n, _, _ in runs.events if n == "packets.live_rays"]
 
 
-def test_recompute_runs_in_the_backward_once_per_sample():
+@pytest.mark.parametrize("spp", [1, 2, 3])
+def test_recompute_runs_in_the_backward_once_per_sample(spp):
+    """Every sample but the last is recomputed once, in autograd's thread
+    during the backward, under its own ``diff.recompute`` root; the last
+    keeps its graph, counted once as ``diff.kept_graphs`` on the
+    ``diff.forward`` root."""
     scene = procedural.to_scene(procedural.cornell_box(with_boxes=False),
                                 "cpu")
     cam = cpt.make_camera(width=8, height=8, device="cpu")
-    cfg = cpt.RenderConfig(width=8, height=8, spp=2, integrator="pt_nee",
-                           samples_per_call=2)
+    cfg = cpt.RenderConfig(width=8, height=8, spp=spp, integrator="pt_nee",
+                           samples_per_call=spp)
     bvh = renderer.build_bvh_for_scene(scene, 4)
     with torch.no_grad():
         target = rg.render_image_diff(scene, cam, cfg, prng_key(99, "cpu"),
@@ -178,7 +184,7 @@ def test_recompute_runs_in_the_backward_once_per_sample():
     params = rg.targets_of(scene)
     tracing.enable(True)
     img = rg.render_image_diff(rg.scene_with(scene, params), cam, cfg,
-                               prng_key(0, "cpu"), 2, bvh=bvh)
+                               prng_key(0, "cpu"), spp, bvh=bvh)
     forward = tracing.records()
     threads = []
     img.x.register_hook(lambda g: threads.append(threading.get_ident()))
@@ -191,9 +197,15 @@ def test_recompute_runs_in_the_backward_once_per_sample():
     roots = [r for r in recs if r.parent is None
              and r.name == "diff.forward"]
     assert len(roots) == 1
+    kept = [r for r in recs if r.name == "diff.kept_graphs"]
+    assert [(r.kind, r.n, r.parent, r.root) for r in kept] == [
+        ("count", 1, roots[0].id, roots[0].id)]
+    assert roots[0].attrs == {"diff.kept_graphs": 1}
     redo = [r for r in recs if r.name == "diff.recompute"]
-    assert sorted(r.attrs["sample"] for r in redo) == [0, 1]
-    assert {r.thread for r in redo} == set(threads) and threads
+    assert sorted(r.attrs["sample"] for r in redo) == list(range(spp - 1))
+    assert threads
+    if redo:
+        assert {r.thread for r in redo} == set(threads)
     assert all(t0 <= r.start_ns <= r.end_ns <= t1 for r in redo)
     # the recompute traces again, under its own span
     for r in redo:
